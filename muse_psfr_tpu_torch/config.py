@@ -1,0 +1,161 @@
+"""Static configuration of the GALACSI WFM ground-layer AO system.
+
+PyTorch counterpart of ``muse_psfr_tpu/config.py``: the same frozen
+dataclass, field for field and with the same defaults, so that a JAX
+configuration carries over unchanged (``state.config_from_reference``).
+
+Two knobs were renamed because they no longer select a Pallas kernel:
+``use_pallas`` is :attr:`GalacsiConfig.use_fused_zoom` (the hand-written
+exp+zoom-DFT kernel, ``ops/zoom_dft.py``) and ``use_pallas_conv`` is
+:attr:`GalacsiConfig.use_fused_conv` (the convolution-chain kernel,
+``ops/conv_dft.py``).  The knobs that size TPU VMEM or select kernel
+variants the port does not have yet are listed in :data:`NOT_YET_PORTED`.
+
+The JAX ``*_precision`` fields choose TPU matmul pass counts.  The port
+runs every contraction in full float32 (TF32 off, see ``utils/device.py``),
+which meets both accepted settings, "highest" and "high", so it has no
+such choice yet and lists them in :data:`NOT_YET_PORTED` too.
+"""
+
+from dataclasses import dataclass, replace
+
+#: JAX config fields renamed in the port: {jax name: port name}
+RENAMED = {"use_pallas": "use_fused_zoom", "use_pallas_conv": "use_fused_conv"}
+
+#: JAX config fields with no counterpart yet: they size the TPU kernels'
+#: VMEM, choose TPU matmul pass counts, or select kernel variants
+#: (direction blocks, the disc split, the anchored-Taylor damping) and
+#: planner tiers still queued in ROADMAP.md
+NOT_YET_PORTED = (
+    "matmul_precision", "zoom_precision", "conv_precision",
+    "pallas_lambda_chunk", "pallas_dir_block", "pallas_conv_pack",
+    "pallas_disc_skip", "pallas_disc_min_ndir",
+    "zoom_anchor", "zoom_anchor_degree", "zoom_anchor_budget",
+    "zoom_anchor_min_ndir", "blue_tiers",
+)
+
+
+@dataclass(frozen=True)
+class GalacsiConfig:
+    # --- telescope / AO system (reference psfrec.py:70-104) ---------------
+    dpup: float = 8.0          # telescope diameter [m]
+    occ: float = 0.14          # central obscuration (linear fraction)
+    alt_dm: float = 1.0        # DM conjugation altitude [m]
+    h_sodium: float = 90000.0  # sodium layer altitude [m] (debug only)
+    lambda_ref: float = 0.5    # PSD reference wavelength [um]
+    nact: float = 24.0         # linear number of DM actuators
+    nsspup: float = 24.0       # linear number of WFS subapertures
+    fsamp: float = 1000.0      # WFS sampling frequency [Hz]
+    delay_ms: float = 2.5      # loop delay (readout + RTC) [ms]
+    sep_lgs: float = 63.0      # LGS radial separation [arcsec]
+    noise_lgs2: float = 1.0    # WFS noise a priori [rad^2]
+    wind_speed: float = 12.5   # layer wind speed [m/s] (see int-h quirk)
+    wind_dir_0: float = 0.628163   # layer 0 wind direction [rad] (pinned)
+    wind_dir_1: float = -0.326497  # layer 1 wind direction [rad] (pinned)
+    lse: bool = True           # LSE reconstructor (False -> MAP prior)
+
+    # --- numerical grids (reference psfrec.py:103, 655-659, 899) ----------
+    dim: int = 1280            # full PSD / OTF grid [px]
+    dim_pup: int = 40          # correction-zone pupil size [px]
+    dimpsf: int = 40           # output PSF cube size [px]
+    pixscale: float = 0.2      # output PSF pixel scale [arcsec/px]
+    samp: float = 2.0          # PSF sampling (Nyquist)
+    lambda_chunk: int = 7      # wavelengths per step of the plain
+                               # (unfused) zoom path; the fused kernel
+                               # takes the whole cube in one launch
+
+    # --- telemetry validity limits (reference psfrec.py:30-31) ------------
+    min_l0: float = 8.0        # minimum valid outer scale [m]
+    max_l0: float = 30.0       # maximum valid outer scale [m]
+
+    # --- compute policy ----------------------------------------------------
+    dtype: str = "float32"     # compute dtype for the heavy stages
+    fit_dtype: str = "float32" # dtype of the Moffat LM solve
+    use_zoom_dft: bool = True  # zoom-DFT matmuls instead of a full IFFT
+    use_fft: bool = True       # torch.fft for the structure function /
+                               # convolutions; False = DFT-matmul path
+                               # (exact, FFT-free), which also routes the
+                               # final convolutions through the fused
+                               # conv-chain kernel
+    zoom_exp2: bool = True     # damping as exp2(alpha*log2e*D + log2 w)
+                               # instead of exp(alpha*D)*w (same math up
+                               # to argument rounding)
+    use_dphi_split: bool = True  # linearity split of the structure
+                               # function: fitting-PSD transform
+                               # precomputed per config, only the
+                               # correction-zone block per row; rows with
+                               # L0 < dphi_split_l0_min take the exact
+                               # transform
+    dphi_split_degree: int = 5
+    dphi_split_l0_min: float = 2.5
+    use_sym_fold: bool = True  # point-symmetry fold of the OTF-side
+                               # contractions (columns 0..N/2 only,
+                               # mirrors weighted 2); needs dim % 256 == 0
+                               # and the zoom-DFT path
+    otf_support: int = 0       # OTF support inf-radius [px]; 0 = full
+                               # half grid (the batch layer runs the full
+                               # window: support buckets are not ported)
+    otf_blue: tuple = None     # blue-segment window split: not ported
+                               # (psf_cube_from_base raises)
+    use_fused_zoom: bool = True  # hand-written exp+zoom-DFT kernel
+                               # (ops/zoom_dft.py) on CUDA float32
+    use_fused_conv: bool = True  # hand-written conv-chain kernel
+                               # (ops/conv_dft.py) on the FFT-free route
+
+    # --- derived ------------------------------------------------------------
+    @property
+    def dimall(self) -> int:
+        """Correction-zone PSD grid size (2x the pupil, psfrec.py:138)."""
+        return 2 * self.dim_pup
+
+    @property
+    def pitch(self) -> float:
+        """DM inter-actuator distance [m] (psfrec.py:132)."""
+        return self.dpup / self.nact
+
+    @property
+    def wfs_pitch(self) -> float:
+        """WFS subaperture pitch ``dpup/nsspup`` [m] (psfrec.py:578)."""
+        return self.dpup / self.nsspup
+
+    @property
+    def fc(self) -> float:
+        """AO fitting cutoff frequency 1/(2*pitch) [1/m]."""
+        return 1.0 / (2.0 * self.pitch)
+
+    @property
+    def fold_ncols(self):
+        """OTF-grid columns computed under the symmetry fold
+        (``dim//2 + 128``), or ``None`` when the fold does not apply."""
+        if not (self.use_sym_fold and self.use_zoom_dft
+                and self.dim % 256 == 0):
+            return None
+        return min(self.dim, self.dim // 2 + 128)
+
+    @property
+    def otf_window(self):
+        """(row_lo, S): rows ``[c-S, c+S)``, columns ``[c-S, c+128)`` of
+        the (dim, dim) OTF grid, ``c = dim//2``; ``None`` when the fold is
+        off (full grid)."""
+        if self.fold_ncols is None:
+            return None
+        c = self.dim // 2
+        S = min(self.otf_support, c) if self.otf_support else c
+        if S % 128 != 0 or S <= 0:
+            raise ValueError(f"otf_support must be a positive multiple "
+                             f"of 128, got {self.otf_support}")
+        return (c - S, S)
+
+    @property
+    def npup(self) -> int:
+        """Pupil support on the full grid [px] (psfrec.py:656)."""
+        return self.dim // 2
+
+    def with_(self, **kw) -> "GalacsiConfig":
+        return replace(self, **kw)
+
+
+DEFAULT_CONFIG = GalacsiConfig()
+
+#: small configuration for fast unit tests: same code path, tiny grids
+TINY_CONFIG = GalacsiConfig(dim=256, dim_pup=16, dimpsf=8)

@@ -1,0 +1,130 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+The kernels live in ``muse_psfr_tpu_torch/csrc/*.cu`` with a plain C
+interface.  :func:`library` compiles them on first use with ``nvcc`` for
+``sm_90a`` into one shared library under ``build/muse_psfr_tpu_torch/``
+(named by a hash of the sources and flags, so an edit rebuilds) and loads
+it with ``ctypes``.  Importing this module builds nothing: the CPU tests
+import every module on machines without ``nvcc``.
+
+Each kernel module keeps a plain integer ``LAUNCHES``, incremented by its
+wrapper right after a successful launch; :func:`launch_counts` and
+:func:`reset_launch_counts` read and clear them together.
+"""
+
+import ctypes
+import hashlib
+import importlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
+    "muse_psfr_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+#: kernel modules (under ``muse_psfr_tpu_torch.ops``) with a launch count
+KERNELS = ("zoom_dft", "conv_dft")
+
+_LOCK = threading.Lock()
+_LIB = None
+#: ptxas report (registers, shared memory, spills) of the last build
+BUILD_LOG = ""
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # dphi, dl, a2, alpha, w, u, B, ndir, n, ncols, nl, m2, exp2, stream
+    "muse_fused_exp_zoom": [_P] * 6 + [_I] * 7 + [_P],
+    # planes, gtt_r, gtt_i, gi_r, gi_i, 6 matrices, out, B, nl, n, L, stream
+    "muse_fused_conv_chain": [_P] * 12 + [_I] * 4 + [_P],
+}
+
+
+def _nvcc() -> str:
+    path = (os.environ.get("NVCC") or shutil.which("nvcc")
+            or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                            "bin", "nvcc"))
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (set NVCC or CUDA_HOME): the "
+                           "CUDA kernels build on first use")
+    return path
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first call."""
+    global _LIB, BUILD_LOG
+    with _LOCK:
+        if _LIB is not None:
+            return _LIB
+        srcs = sources()
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for p in srcs:
+            digest.update(p.name.encode() + p.read_bytes())
+        so = BUILD_DIR / f"libmuse_psfr_kernels-{digest.hexdigest()[:16]}.so"
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)],
+                capture_output=True, text=True)
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            BUILD_LOG = proc.stdout + proc.stderr
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIB = lib
+        return lib
+
+
+def check_launch(err: int, name: str):
+    """Raise if a C entry point reported a CUDA error."""
+    if err:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def check_operands(name, device, operands):
+    """Device, dtype, shape and contiguity of a kernel's inputs."""
+    if device.type != "cuda":
+        raise ValueError(f"{name}: tensors must be on CPU or CUDA, "
+                         f"got {device}")
+    for key, (t, shape) in operands.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {key} is on {t.device}, expected "
+                             f"{device}")
+        if t.dtype != torch.float32:
+            raise ValueError(
+                f"{name}: the CUDA kernel takes float32, got {key} in "
+                f"{t.dtype}; run float64 on the CPU, or switch the fused "
+                "kernels off (cfg.use_fused_zoom / cfg.use_fused_conv)")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+
+
+def launch_counts() -> dict:
+    """{kernel module name: LAUNCHES}."""
+    return {k: importlib.import_module(f"{__package__}.{k}").LAUNCHES
+            for k in KERNELS}
+
+
+def reset_launch_counts():
+    for k in KERNELS:
+        importlib.import_module(f"{__package__}.{k}").LAUNCHES = 0

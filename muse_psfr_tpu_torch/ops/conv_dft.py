@@ -1,0 +1,114 @@
+"""K2: fused final-PSF convolution chain.
+
+The final-PSF stage (reference convolve_final_psf, psfrec.py:874-930)
+convolves each (n, n) PSF plane with the row's tip-tilt Moffat and then
+the plane's MUSE-intrinsic Moffat: two 'same' linear convolutions, each
+exact as a circular DFT product at the alias-free size L
+(``otf/convolve.py:_same_fft_size``; L=64 at dimpsf=40).  The transforms
+are trimmed to the support (see :func:`_trimmed_mats`): the forward
+transform contracts only the n nonzero rows/columns and the inverse
+computes only the n 'same'-window rows/columns, so the crop is free.
+
+:func:`fused_conv_chain` launches the hand-written CUDA kernel
+(``csrc/conv_dft.cu``; counterpart of
+``muse_psfr_tpu/ops/conv_dft.py:fused_conv_chain``) for CUDA tensors: one
+block per (row, plane), the whole chain in shared memory.  For CPU tensors
+it runs :func:`fused_conv_chain_reference`, the same operations in plain
+PyTorch.  The kernel spectra come from ``otf/convolve.py:_dft_spectra``.
+"""
+
+import numpy as np
+import torch
+
+from . import _build
+from ..utils.device import host_const
+
+#: successful launches of the CUDA kernel (see ops/_build.py)
+LAUNCHES = 0
+
+
+def _trimmed_mats(L: int, n: int, off: int):
+    """Host float64 trimmed transform matrices (``_trimmed_mats`` of the
+    JAX package with pack=1).  With ``C - iS`` the symmetric DFT matrix:
+
+    csn (2L, n): [C; S] columns restricted to the nonzero plane rows;
+    crc/crs (n, L): right-multiplies of the forward transform
+    (Fr = A crc - B crs, Fi = -(A crs + B crc));
+    csel (2n, L): inverse rows restricted to the 'same' window;
+    cdc/cds (L, n): inverse right-multiplies with only the window columns.
+    """
+    a = np.arange(L)
+    ang = np.mod(np.outer(a, a), L) * (2.0 * np.pi / L)
+    c = np.cos(ang)
+    s = np.sin(ang)
+    csn = np.concatenate([c[:, :n], s[:, :n]], axis=0)
+    csel = np.concatenate([c[off:off + n, :], s[off:off + n, :]], axis=0)
+    return (csn, c[:n, :], s[:n, :], csel, c[:, off:off + n],
+            s[:, off:off + n])
+
+
+def _mats(L, n, off, device, dtype):
+    return tuple(host_const(("conv_trimmed", L, n, off, i),
+                            lambda i=i: _trimmed_mats(L, n, off)[i],
+                            device, dtype)
+                 for i in range(6))
+
+
+def _conv_same(x, gr, gi, mats):
+    """One trimmed circular-DFT 'same' convolution of planes ``x``
+    (..., n, n) with kernel spectra ``(gr, gi)`` (..., L, L)."""
+    csn, crc, crs, csel, cdc, cds = mats
+    L = csn.shape[0] // 2
+    n = x.shape[-1]
+    ab = torch.matmul(csn, x)                             # (..., 2L, n)
+    a, b = ab[..., :L, :], ab[..., L:, :]
+    fr = torch.matmul(a, crc) - torch.matmul(b, crs)
+    fi = -(torch.matmul(a, crs) + torch.matmul(b, crc))
+    hr = fr * gr - fi * gi
+    hi = fr * gi + fi * gr
+    u = torch.matmul(csel, hr)                            # (..., 2n, L)
+    v = torch.matmul(csel, hi)
+    aa = u[..., :n, :] - v[..., n:, :]
+    bb = v[..., :n, :] + u[..., n:, :]
+    return (torch.matmul(aa, cdc) - torch.matmul(bb, cds)) * (1.0 / (L * L))
+
+
+def fused_conv_chain_reference(planes, gtt_r, gtt_i, gi_r, gi_i, n_ker):
+    """Plain PyTorch K2.  planes (B, nl, n, n); gtt_r/gtt_i (B, L, L) the
+    rows' tip-tilt kernel spectra; gi_r/gi_i (nl, L, L) the planes'
+    intrinsic spectra.  Returns (B, nl, n, n): the tip-tilt then the
+    intrinsic 'same' convolution of every plane."""
+    L, n = gtt_r.shape[-1], planes.shape[-1]
+    mats = _mats(L, n, (n_ker - 1) // 2, planes.device, planes.dtype)
+    y = _conv_same(planes, gtt_r[:, None], gtt_i[:, None], mats)
+    return _conv_same(y, gi_r[None], gi_i[None], mats)
+
+
+def fused_conv_chain(planes, gtt_r, gtt_i, gi_r, gi_i, n_ker):
+    """K2 on the tensors' device: the CUDA kernel for CUDA tensors (float32
+    only; anything else raises), :func:`fused_conv_chain_reference` for CPU
+    tensors.  Shapes as in the reference; every tensor contiguous."""
+    global LAUNCHES
+    if planes.device.type == "cpu":
+        return fused_conv_chain_reference(planes, gtt_r, gtt_i, gi_r, gi_i,
+                                          n_ker)
+    from ..otf.convolve import _same_fft_size
+    B, nl, n, _ = planes.shape
+    L = _same_fft_size(n, n_ker)
+    _build.check_operands("fused_conv_chain", planes.device, {
+        "planes": (planes, (B, nl, n, n)), "gtt_r": (gtt_r, (B, L, L)),
+        "gtt_i": (gtt_i, (B, L, L)), "gi_r": (gi_r, (nl, L, L)),
+        "gi_i": (gi_i, (nl, L, L))})
+    if B > 65535:
+        raise ValueError(f"fused_conv_chain: grid too large (B={B})")
+    mats = _mats(L, n, (n_ker - 1) // 2, planes.device, torch.float32)
+    out = torch.empty_like(planes)
+    lib = _build.library()
+    err = lib.muse_fused_conv_chain(
+        planes.data_ptr(), gtt_r.data_ptr(), gtt_i.data_ptr(),
+        gi_r.data_ptr(), gi_i.data_ptr(), *(m.data_ptr() for m in mats),
+        out.data_ptr(), B, nl, n, L,
+        torch.cuda.current_stream(planes.device).cuda_stream)
+    _build.check_launch(err, "fused_conv_chain")
+    LAUNCHES += 1
+    return out

@@ -1,0 +1,458 @@
+"""PSD -> structure function -> OTF -> PSF chain (PyTorch, batched).
+
+Counterpart of ``muse_psfr_tpu/otf/psf.py`` (reference ``psd_to_psf``,
+psfrec.py:689-807, and ``psf_muse``, 644-686), with the telemetry rows as
+the leading batch dimension of every tensor.  The same exact
+reformulations carry over:
+
+1. the structure function is wavelength-free up to ``(2 pi/lbda)^2``, so
+   one transform per row and direction serves every wavelength;
+2. the diffraction OTF (pupil autocorrelation) is a host float64 constant;
+3. the direction average of DC-normalised PSFs is the PSF of the average
+   of DC-normalised OTFs, and the crop-and-regrid is a zoom DFT (two real
+   contractions per stage) at the bilinear nodes, never the full
+   inverse FFT;
+4. under the point-symmetry fold only the OTF columns ``0..N/2`` are
+   computed, mirrors weighted 2 in the second zoom stage.
+
+The fused step :func:`_psf_chunk_fused` runs the first zoom stage through
+K1 (``ops/zoom_dft.py``); :func:`_psf_chunk_plain` is the unfused
+per-wavelength body.
+"""
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..config import GalacsiConfig
+from ..core.grids import centered_freq_radius
+from ..core.vonkarman import (fitting_expansion_max_rel_error,
+                              fitting_expansion_spec)
+from ..utils.device import host_const
+
+_PUPIL_OTF_CACHE = {}
+_DPHI_BASIS_CACHE = {}
+
+
+def _pupil_key(cfg: GalacsiConfig):
+    return (cfg.dim, cfg.npup, cfg.occ)
+
+
+def pupil_otf(cfg: GalacsiConfig):
+    """Diffraction-limited OTF: normalised pupil autocorrelation (dim, dim),
+    image-centred, host numpy float64, cached (reference psfrec.py:783-790
+    computes it per wavelength; it is wavelength-independent)."""
+    key = _pupil_key(cfg)
+    if key not in _PUPIL_OTF_CACHE:
+        c = (cfg.npup - 1) / 2.0
+        y = np.arange(cfg.npup)[:, None] - c
+        x = np.arange(cfg.npup)[None, :] - c
+        rho = np.hypot(y, x) / (cfg.dim / 4.0)
+        pup = ((rho < 1.0) & (rho >= cfg.occ)).astype(np.float64)
+        tab = np.zeros((cfg.dim, cfg.dim), np.complex128)
+        tab[:cfg.npup, :cfg.npup] = pup
+        amp = np.abs(np.fft.ifft2(tab)) ** 2
+        otf = np.abs(np.fft.fft2(amp)) / pup.sum()
+        _PUPIL_OTF_CACHE[key] = np.fft.fftshift(otf)
+    return _PUPIL_OTF_CACHE[key]
+
+
+def _centered_idft_np(dim: int, cols=None):
+    """Real/imag matrices of the shifted inverse DFT, centred in and out:
+    ``fftshift(ifft2(fftshift(X))).real = C X C^T - S X S^T`` for real X.
+    Phases reduced mod N in integers before the trig.  ``cols=(lo, n)``
+    restricts to input columns ``lo:lo+n``."""
+    k = np.mod(np.arange(dim) - dim // 2, dim)
+    g = np.arange(dim) if cols is None else np.arange(cols[0],
+                                                      cols[0] + cols[1])
+    ph = np.mod(np.outer(k, g), dim).astype(np.float64)
+    ang = ph * (2.0 * np.pi / dim)
+    sign = np.where(k % 2 == 0, 1.0, -1.0)[:, None]
+    c = sign * np.cos(ang) / dim
+    s = sign * np.sin(ang) / dim
+    return c, s
+
+
+def _idft(dim, device, dtype, cols=None):
+    return tuple(host_const(("idft", dim, cols, i),
+                            lambda i=i: _centered_idft_np(dim, cols)[i],
+                            device, dtype) for i in range(2))
+
+
+def _fold_weights(dim: int, S: int, ncw: int):
+    """Column weights of the point-symmetry fold for the ``ncw`` computed
+    columns (global ``[c-S, c+128)``): local ``[0, S)`` -> 2, the
+    self-paired centre ``S`` -> 1, the tile-pad tail -> 0; when the window
+    reaches the grid edge, global column 0 (self-paired Nyquist) -> 1."""
+    v = np.zeros(ncw)
+    v[:S] = 2.0
+    v[S] = 1.0
+    if dim // 2 - S == 0:
+        v[0] = 1.0
+    return v
+
+
+def _window_bounds(cfg: GalacsiConfig):
+    """(r_lo, r_hi, col_hi, S) of the computed OTF block."""
+    win = cfg.otf_window
+    if win is None:                              # unfolded: full grid
+        return 0, cfg.dim, cfg.dim, cfg.dim // 2
+    r_lo, S = win
+    return r_lo, r_lo + 2 * S, cfg.dim // 2 + 128, S
+
+
+def _basis_key(cfg: GalacsiConfig):
+    return (cfg.dim, cfg.npup, cfg.dpup, cfg.fc, cfg.dphi_split_degree,
+            cfg.dphi_split_l0_min)
+
+
+def fitting_dphi_basis(cfg: GalacsiConfig):
+    """Structure-function transforms ``T_k`` of the fitting-PSD Taylor
+    basis, (degree+1, dim, dim) host numpy float64, cached.
+
+    The PSD decomposes as ``sum_k w_k B_k + embed(delta)``
+    (``psd/model.py:simulate_psd_split``), and the transform is linear, so
+    ``dphi_base(PSD) = sum_k w_k T_k + block_transform(delta)`` with the
+    full-grid ``T_k`` computed once per configuration here.
+    """
+    key = _basis_key(cfg)
+    if key not in _DPHI_BASIS_CACHE:
+        err = fitting_expansion_max_rel_error(
+            cfg.dphi_split_l0_min, cfg.dphi_split_degree, cfg.fc)
+        if err > 1e-7:
+            raise ValueError(
+                f"fitting-PSD expansion error {err:.2e} exceeds the 1e-7 "
+                f"budget for L0 >= {cfg.dphi_split_l0_min}; raise "
+                f"dphi_split_degree or dphi_split_l0_min")
+        dim = cfg.dim
+        L = cfg.dpup * dim / cfg.npup
+        scale = dim * dim / (L * L)
+        f = centered_freq_radius(dim, 2.0 * cfg.dpup)
+        mask = (f >= cfg.fc).astype(np.float64)
+        u0, binoms = fitting_expansion_spec(cfg.dphi_split_l0_min,
+                                            cfg.dphi_split_degree)
+        f2u = f * f + u0
+        ts = []
+        for k in range(len(binoms)):
+            b = mask * f2u ** (-11.0 / 6.0 - k)
+            bg = np.fft.ifft2(np.fft.fftshift(b)).real * scale
+            ts.append(np.fft.fftshift(2.0 * (bg[0, 0] - bg)))
+        _DPHI_BASIS_CACHE[key] = np.stack(ts)
+    return _DPHI_BASIS_CACHE[key]
+
+
+def _windowed_basis(cfg, device, dtype):
+    r_lo, r_hi, col_hi, _ = _window_bounds(cfg)
+    return host_const(("dphi_basis", _basis_key(cfg), r_lo, r_hi, col_hi),
+                      lambda: fitting_dphi_basis(cfg)[:, r_lo:r_hi,
+                                                      r_lo:col_hi],
+                      device, dtype)
+
+
+def _dl_window(cfg, device, dtype):
+    """The diffraction OTF over the computed block (rows, cols)."""
+    r_lo, r_hi, col_hi, _ = _window_bounds(cfg)
+    return host_const(("pupil_otf", _pupil_key(cfg), r_lo, r_hi, col_hi),
+                      lambda: pupil_otf(cfg)[r_lo:r_hi, r_lo:col_hi],
+                      device, dtype)
+
+
+def dphi_base_split(w, delta, cfg: GalacsiConfig):
+    """Wavelength-free structure function from the split PSD form.
+
+    ``w``: (B, degree+1) fitting-basis weights; ``delta``: (B, ndir,
+    dimall, dimall) correction-zone excess [nm^2].  Returns (B, ndir,
+    rows, cols) over the config's fold window (``cfg.otf_window``), or the
+    full (dim, dim) grid when the fold is off.  The full-grid transform is
+    the precomputed basis; only the centrally supported block is
+    transformed per row, through the matching columns of the inverse-DFT
+    matrices.
+    """
+    dev, dtype = delta.device, delta.dtype
+    dim = cfg.dim
+    L = cfg.dpup * dim / cfg.npup
+    scale = dim * dim / (L * L)
+
+    T = _windowed_basis(cfg, dev, dtype)             # (K+1, rows, cols)
+    shared = w[:, 0, None, None] * T[0]
+    for k in range(1, T.shape[0]):
+        shared = shared + w[:, k, None, None] * T[k]
+
+    lo = dim // 2 - cfg.dim_pup
+    s = delta.shape[-1]
+    x = delta
+    bg00 = torch.sum(x, dim=(-2, -1))[..., None, None] / (L * L)
+    if cfg.otf_window is None:
+        c_blk, s_blk = _idft(dim, dev, dtype, cols=(lo, s))
+        re_blk = (torch.matmul(torch.matmul(c_blk, x), c_blk.T)
+                  - torch.matmul(torch.matmul(s_blk, x), s_blk.T))
+    else:
+        # fold: symmetrise the correction block first (delta is NOT
+        # f -> -f symmetric; its global mirror spans [lo, lo + s], one
+        # row/column wider, hence the pad by one), then emit only the
+        # window rows/columns the zoom path reads
+        r_lo, r_hi, col_hi, _ = _window_bounds(cfg)
+        xp = F.pad(x, (0, 1, 0, 1))
+        xs = 0.5 * (xp + torch.flip(xp, dims=(-2, -1)))
+        c_blk, s_blk = _idft(dim, dev, dtype, cols=(lo, s + 1))
+        re_blk = (torch.matmul(torch.matmul(c_blk[r_lo:r_hi], xs),
+                               c_blk[r_lo:col_hi].T)
+                  - torch.matmul(torch.matmul(s_blk[r_lo:r_hi], xs),
+                                 s_blk[r_lo:col_hi].T))
+    return shared[:, None] + 2.0 * (bg00 - re_blk * scale)
+
+
+def dphi_base(psd, cfg: GalacsiConfig):
+    """Wavelength-free structure function (B, ndir, rows, cols) from full
+    PSD cubes (B, ndir, dim, dim) [nm^2]: ``Dphi(lbda) = (2 pi/lbda_nm)^2
+    * dphi_base`` (reference psfrec.py:716-722).  ``cfg.use_fft`` selects
+    torch.fft, otherwise two DFT matmuls per side (exact to rounding)."""
+    dev, dtype = psd.device, psd.dtype
+    dim = cfg.dim
+    L = cfg.dpup * dim / cfg.npup
+    scale = dim * dim / (L * L)
+    r_lo, r_hi, col_hi, _ = _window_bounds(cfg)
+    if cfg.use_fft:
+        cdtype = torch.complex64 if dtype == torch.float32 else \
+            torch.complex128
+        bg = torch.fft.ifft2(torch.fft.fftshift(psd, dim=(-2, -1)).to(
+            cdtype)) * scale
+        d = 2.0 * (bg[..., :1, :1].real - bg.real)
+        d = torch.fft.fftshift(d, dim=(-2, -1))
+        return d[..., r_lo:r_hi, r_lo:col_hi]
+
+    c, s = _idft(dim, dev, dtype)
+    x = psd
+    if cfg.otf_window is None:
+        re_bg = (torch.matmul(torch.matmul(c, x), c.T)
+                 - torch.matmul(torch.matmul(s, x), s.T))
+    else:
+        # fold: the real part of the inverse transform equals the
+        # transform of the symmetrised PSD, whose contractions fold onto
+        # columns 0..N/2 (the raw GLAO PSD is not f -> -f symmetric)
+        nh = dim // 2 + 1
+        vh = np.full(nh, 2.0)
+        vh[0] = vh[-1] = 1.0
+        vh = torch.as_tensor(vh, dtype=dtype, device=dev)
+        xs = 0.5 * (x + torch.roll(torch.flip(x, dims=(-2, -1)), (1, 1),
+                                   dims=(-2, -1)))
+        xh = xs[..., :nh]
+        re_bg = (torch.matmul(torch.matmul(c[r_lo:r_hi], xh) * vh,
+                              c[r_lo:col_hi, :nh].T)
+                 - torch.matmul(torch.matmul(s[r_lo:r_hi], xh) * vh,
+                                s[r_lo:col_hi, :nh].T))
+    bg00 = torch.sum(x, dim=(-2, -1))[..., None, None] / (L * L)
+    return 2.0 * (bg00 - re_bg * scale)
+
+
+def lambda_crop_size(lbda_nm, cfg: GalacsiConfig):
+    """Even crop size ``npixc(lbda)`` [px] (reference psfrec.py:663-664),
+    decided on the host in float64.
+
+    QUIRK: ``np.round`` is round-half-to-even, and the MUSE grids land on
+    exact .5 boundaries for some wavelengths (plane 19 of linspace(500,
+    900, 37): 436.5 -> 872); a float32 quotient lands on the other side
+    and shifts that plane's regrid by 2 px.
+    """
+    scale = cfg.dimpsf * cfg.pixscale * 2.0 * cfg.dpup * 4.85 * 1000.0
+    raw = scale / np.asarray(lbda_nm, np.float64)
+    return (np.round(raw / 2.0) * 2.0).astype(np.int64)
+
+
+def _crop_grid(npix, cfg: GalacsiConfig, dtype):
+    """Bilinear floor indices (k, nout) int64 and weights (k, nout) of the
+    per-wavelength crop-and-regrid (crop ``npix`` px, ``nout`` samples)."""
+    dim, nout = cfg.dim, cfg.dimpsf
+    start = (dim // 2 - npix // 2).to(dtype)
+    step = npix.to(dtype) / nout
+    pos = start[:, None] + torch.arange(nout, dtype=dtype,
+                                        device=npix.device)[None] * \
+        step[:, None]
+    i0f = torch.floor(pos)
+    t = pos - i0f
+    i0 = torch.clamp(i0f.to(torch.int64), 0, dim - 2)
+    return i0, t
+
+
+def _zoom_dft_matrices(idx, dim: int, dtype):
+    """Real/imag inverse-DFT rows for PSF pixel indices ``idx`` (..., npts)
+    int64: ``psf[p, q] = Re sum_g G[g1, g2] A[p, g1] A[q, g2]`` with
+    ``A[p, g] = exp(2i pi (p - N/2)(g + N/2) / N) / N``.  The phase is
+    reduced mod N in integers before the trig.  Returns (..., npts, dim)."""
+    kk = (idx - dim // 2)[..., None]
+    gg = torch.arange(dim, device=idx.device) + dim // 2
+    ph = torch.remainder(kk * gg, dim).to(dtype)
+    ang = ph * (2.0 * np.pi / dim)
+    return torch.cos(ang) / dim, torch.sin(ang) / dim
+
+
+def _combine_bilinear(p, t, nout: int):
+    """(..., 2n, 2n) PSF node values -> (..., n, n) bilinear samples with
+    per-plane weights ``t`` (..., n)."""
+    w0 = 1.0 - t
+    tr, tc = t[..., :, None], t[..., None, :]
+    w0r, w0c = w0[..., :, None], w0[..., None, :]
+    return (w0r * w0c * p[..., :nout, :nout]
+            + w0r * tc * p[..., :nout, nout:]
+            + tr * w0c * p[..., nout:, :nout]
+            + tr * tc * p[..., nout:, nout:])
+
+
+def _zoom_operands(base, lb_k, npix_k, cfg: GalacsiConfig):
+    """K1's inputs for one wavelength chunk, plus what the second zoom
+    stage needs: ``(a2, alpha, w, ar2, ai2, t)``.
+
+    ``a2`` (k, 4n, rows) stacked [Ar; Ai] rows over the window rows;
+    ``alpha`` (k,) damping exponents; ``w`` (B, k, ndir) per-direction DC
+    weights; ``ar2/ai2`` (k, 2n, cols) second-stage rows with the fold
+    weights applied; ``t`` (k, n) bilinear weights.
+    """
+    dtype = base.dtype
+    dim, ndir = cfg.dim, base.shape[1]
+    r_lo, r_hi, col_hi, S = _window_bounds(cfg)
+    i0, t = _crop_grid(npix_k, cfg, dtype)
+    idx = torch.cat([i0, i0 + 1], dim=1)                 # (k, 2n)
+    ar, ai = _zoom_dft_matrices(idx, dim, dtype)          # (k, 2n, dim)
+    a2 = torch.cat([ar, ai], dim=1)[..., r_lo:r_hi].contiguous()
+
+    alpha = -0.5 * (2.0 * np.pi / lb_k) ** 2              # (k,)
+    c = dim // 2
+    dlc = float(pupil_otf(cfg)[c, c])
+    norm = torch.exp(alpha[None, :, None]
+                     * base[:, None, :, c - r_lo, c - r_lo]) * dlc
+    w = (1.0 / (ndir * norm)).contiguous()               # (B, k, ndir)
+    ar2, ai2 = ar[..., r_lo:col_hi], ai[..., r_lo:col_hi]
+    if cfg.otf_window is not None:
+        v = torch.as_tensor(_fold_weights(dim, S, base.shape[-1]),
+                            dtype=dtype, device=base.device)
+        ar2, ai2 = ar2 * v, ai2 * v
+    return a2, alpha.contiguous(), w, ar2, ai2, t
+
+
+def _psf_chunk_fused(base, lb_k, npix_k, cfg: GalacsiConfig):
+    """Fused path for one wavelength chunk (counterpart of
+    ``_psf_chunk_pallas``): K1 builds the direction-averaged system OTF
+    tile by tile and contracts it with the first zoom stage; the second
+    stage and the bilinear combine follow as plain contractions.
+
+    ``base``: (B, ndir, rows, cols) windowed structure function;
+    ``lb_k``/``npix_k``: (k,) wavelengths [nm] and crop sizes.  Returns
+    (B, k, dimpsf, dimpsf) normalised PSF samples.
+    """
+    from ..ops.zoom_dft import fused_exp_zoom
+    nout = cfg.dimpsf
+    a2, alpha, w, ar2, ai2, t = _zoom_operands(base, lb_k, npix_k, cfg)
+    u = fused_exp_zoom(base, _dl_window(cfg, base.device, base.dtype), a2,
+                       alpha, w, exp2=cfg.zoom_exp2)      # (B, k, 4n, cols)
+    m = 2 * nout
+    p = (torch.matmul(u[:, :, :m], ar2.transpose(-1, -2))
+         - torch.matmul(u[:, :, m:], ai2.transpose(-1, -2)))   # (B, k, m, m)
+    out = _combine_bilinear(torch.clamp_min(p, 0.0), t, nout)
+    return out / torch.sum(out, dim=(-2, -1), keepdim=True)
+
+
+def _psf_samples_zoom(mean_otf, i0, t, cfg: GalacsiConfig):
+    """Bilinear PSF samples of direction-averaged OTFs (B, k, rows, cols)
+    by zoom DFT, without the full-resolution PSF; exactly the FFT path
+    followed by :func:`_bilinear_regrid`, clip at zero included."""
+    dtype = mean_otf.dtype
+    dim = cfg.dim
+    r_lo, r_hi, col_hi, S = _window_bounds(cfg)
+    idx = torch.cat([i0, i0 + 1], dim=-1)                # (k, 2n)
+    ar, ai = _zoom_dft_matrices(idx, dim, dtype)
+    u_r = torch.matmul(ar[..., r_lo:r_hi], mean_otf)     # (B, k, 2n, cols)
+    u_i = torch.matmul(ai[..., r_lo:r_hi], mean_otf)
+    if cfg.otf_window is not None:
+        v = torch.as_tensor(_fold_weights(dim, S, mean_otf.shape[-1]),
+                            dtype=dtype, device=mean_otf.device)
+        u_r, u_i = u_r * v, u_i * v
+    p = (torch.matmul(u_r, ar[..., r_lo:col_hi].transpose(-1, -2))
+         - torch.matmul(u_i, ai[..., r_lo:col_hi].transpose(-1, -2)))
+    return _combine_bilinear(torch.clamp_min(p, 0.0), t, cfg.dimpsf)
+
+
+def _psf_plane_fft(mean_otf):
+    """Full-resolution PSF planes from direction-averaged OTFs (centred)."""
+    cdtype = torch.complex64 if mean_otf.dtype == torch.float32 else \
+        torch.complex128
+    sys_otf = torch.fft.fftshift(mean_otf, dim=(-2, -1)).to(cdtype)
+    psf = torch.fft.ifft2(sys_otf).real
+    return torch.fft.fftshift(psf, dim=(-2, -1))
+
+
+def _bilinear_regrid(img, i0, t):
+    """out[.., i, j] = bilinear(img, (pos_i, pos_j)) per plane, with floor
+    indices ``i0`` and weights ``t`` (k, nout) from :func:`_crop_grid`;
+    ``img`` (B, k, N, N).  Replaces the reference's crop + ``interpn``
+    regrid (psfrec.py:672-683)."""
+    k = i0.shape[0]
+    kk = torch.arange(k, device=img.device)[:, None]
+    rows = (img[:, kk, i0] * (1.0 - t)[None, :, :, None]
+            + img[:, kk, i0 + 1] * t[None, :, :, None])  # (B, k, n, N)
+    ix = i0[None, :, None, :].expand(img.shape[0], k, i0.shape[1], -1)
+    return (torch.gather(rows, -1, ix) * (1.0 - t)[None, :, None, :]
+            + torch.gather(rows, -1, ix + 1) * t[None, :, None, :])
+
+
+def _psf_chunk_plain(base, lb_k, npix_k, cfg: GalacsiConfig):
+    """Unfused path for one wavelength chunk (the batched ``one_lambda``
+    body): the system OTF per direction, its DC-normalised direction
+    average, then the zoom DFT (or the full inverse FFT and a bilinear
+    regrid when ``cfg.use_zoom_dft`` is off).  Returns (B, k, n, n)."""
+    dim = cfg.dim
+    r_lo = _window_bounds(cfg)[0]
+    cc = dim // 2 - r_lo                                   # local centre
+    i0, t = _crop_grid(npix_k, cfg, base.dtype)
+    convnm2 = (2.0 * np.pi / lb_k) ** 2                    # (k,)
+    ao = torch.exp(-0.5 * convnm2[None, :, None, None, None]
+                   * base[:, None])                        # (B, k, ndir, ..)
+    prod = ao * _dl_window(cfg, base.device, base.dtype)
+    norm = prod[..., cc, cc]                               # (B, k, ndir)
+    mean_otf = torch.mean(prod / norm[..., None, None], dim=2)
+    if cfg.use_zoom_dft:
+        out = _psf_samples_zoom(mean_otf, i0, t, cfg)
+    else:
+        psf = torch.clamp_min(_psf_plane_fft(mean_otf), 0.0)
+        out = _bilinear_regrid(psf, i0, t)
+    return out / torch.sum(out, dim=(-2, -1), keepdim=True)
+
+
+def psf_cube_from_base(base, lbda_nm, cfg: GalacsiConfig, npixc=None):
+    """PSF cubes (B, nl, dimpsf, dimpsf) from the wavelength-free structure
+    function ``base`` (B, ndir, rows, cols), produced by
+    :func:`dphi_base`/:func:`dphi_base_split` under the SAME config.
+
+    ``lbda_nm``: (nl,) wavelengths [nm] (host array or tensor);
+    ``npixc``: crop sizes, decided on the host in float64 from ``lbda_nm``
+    when not given (:func:`lambda_crop_size`).  With
+    ``cfg.use_fused_zoom`` the whole cube is one K1 launch; otherwise the
+    plain body runs ``cfg.lambda_chunk`` wavelengths per step.
+    """
+    if cfg.otf_blue is not None:
+        raise NotImplementedError(
+            "otf_blue (the blue-segment window split) is not ported yet; "
+            "see ROADMAP.md, Queue 1")
+    dev, dtype = base.device, base.dtype
+    dim = cfg.dim
+    if npixc is None:
+        lb_host = (lbda_nm.cpu().numpy() if torch.is_tensor(lbda_nm)
+                   else lbda_nm)
+        npixc = lambda_crop_size(lb_host, cfg)
+    win = cfg.otf_window
+    expect = (dim, dim) if win is None else (2 * win[1], win[1] + 128)
+    if tuple(base.shape[-2:]) != expect:
+        raise ValueError(
+            f"structure-function block {tuple(base.shape[-2:])} does not "
+            f"match the config's fold/support window {expect}; produce "
+            "`base` with dphi_base/dphi_base_split under the same config")
+    if not cfg.use_fft and not cfg.use_zoom_dft:
+        raise ValueError("the FFT-free mode (use_fft=False) requires the "
+                         "zoom-DFT resampling path (use_zoom_dft=True)")
+    lb = torch.as_tensor(lbda_nm, dtype=dtype, device=dev)
+    npix = torch.as_tensor(npixc, dtype=torch.int64, device=dev)
+    if cfg.use_fused_zoom and cfg.use_zoom_dft:
+        return _psf_chunk_fused(base, lb, npix, cfg)
+    k = max(1, cfg.lambda_chunk)
+    return torch.cat([_psf_chunk_plain(base, lb[i:i + k], npix[i:i + k],
+                                       cfg)
+                      for i in range(0, lb.shape[0], k)], dim=1)

@@ -1,0 +1,71 @@
+"""The PyTorch port's GalacsiConfig against the JAX package's, field for
+field: every JAX field is ported with an equal default, renamed, or listed
+in NOT_YET_PORTED, and the derived grid properties agree."""
+
+import dataclasses
+
+import pytest
+
+pytest.importorskip("torch")
+
+from muse_psfr_tpu import config as jcfg  # noqa: E402
+from muse_psfr_tpu_torch import config as tcfg  # noqa: E402
+
+
+def _defaults(cls):
+    return {f.name: f.default for f in dataclasses.fields(cls)}
+
+
+def test_every_jax_field_is_ported_renamed_or_listed():
+    port = _defaults(tcfg.GalacsiConfig)
+    jax_fields = _defaults(jcfg.GalacsiConfig)
+    for name, default in jax_fields.items():
+        if name in tcfg.NOT_YET_PORTED:
+            assert name not in port, name
+            continue
+        pname = tcfg.RENAMED.get(name, name)
+        assert pname in port, f"JAX field {name!r} missing from the port"
+        assert port[pname] == default, (name, port[pname], default)
+    # nothing the JAX package does not have
+    carried = {tcfg.RENAMED.get(n, n) for n in jax_fields}
+    assert set(port) <= carried, set(port) - carried
+
+
+def test_rename_map_and_not_yet_ported_name_jax_fields():
+    jax_fields = _defaults(jcfg.GalacsiConfig)
+    assert tcfg.RENAMED == {"use_pallas": "use_fused_zoom",
+                            "use_pallas_conv": "use_fused_conv"}
+    assert set(tcfg.RENAMED) <= set(jax_fields)
+    assert set(tcfg.NOT_YET_PORTED) <= set(jax_fields)
+    assert not set(tcfg.RENAMED) & set(tcfg.NOT_YET_PORTED)
+
+
+@pytest.mark.parametrize("kw", [{}, {"dim": 256, "dim_pup": 16, "dimpsf": 8},
+                                {"otf_support": 256},
+                                {"use_sym_fold": False},
+                                {"use_zoom_dft": False},
+                                {"nsspup": 20.0, "dim": 640}])
+@pytest.mark.parametrize("prop", ["dimall", "pitch", "wfs_pitch", "fc",
+                                  "fold_ncols", "otf_window", "npup"])
+def test_derived_properties_match(kw, prop):
+    assert (getattr(tcfg.GalacsiConfig(**kw), prop)
+            == getattr(jcfg.GalacsiConfig(**kw), prop))
+
+
+def test_tiny_config_and_with_():
+    t, j = tcfg.TINY_CONFIG, jcfg.TINY_CONFIG
+    for f in dataclasses.fields(tcfg.GalacsiConfig):
+        if f.name not in tcfg.RENAMED.values():
+            assert getattr(t, f.name) == getattr(j, f.name), f.name
+    c = t.with_(dtype="float64", use_fused_zoom=False)
+    assert c.dtype == "float64" and not c.use_fused_zoom
+    assert t.dtype == "float32"                  # frozen original
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        t.dim = 64
+
+
+def test_bad_support_raises_like_jax():
+    for cfg in (tcfg.GalacsiConfig(otf_support=100),
+                jcfg.GalacsiConfig(otf_support=100)):
+        with pytest.raises(ValueError):
+            cfg.otf_window

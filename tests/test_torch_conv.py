@@ -1,0 +1,109 @@
+"""otf/convolve.py and K2's plain version (ops/conv_dft.py) of the PyTorch
+port against the JAX package: the three 'same'-convolution backends and
+convolve_final on both routes in float64 (<= 1e-10 x max|ref|), and the
+plain K2 against the Pallas conv chain in interpret mode in float32
+(<= 1e-6 x max|ref|)."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from muse_psfr_tpu.config import TINY_CONFIG as JTINY  # noqa: E402
+from muse_psfr_tpu.ops.conv_dft import fused_conv_chain as jchain  # noqa
+from muse_psfr_tpu.otf import convolve as jconv  # noqa: E402
+from muse_psfr_tpu_torch.config import TINY_CONFIG as TTINY  # noqa: E402
+from muse_psfr_tpu_torch.ops import conv_dft as tchain  # noqa: E402
+from muse_psfr_tpu_torch.otf import convolve as tconv  # noqa: E402
+
+
+def _close(got, want, tol):
+    want = np.asarray(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= tol, err
+
+
+def test_same_fft_size():
+    for n_img, n_ker in ((40, 41), (8, 9), (9, 9), (16, 17), (3, 5)):
+        assert (tconv._same_fft_size(n_img, n_ker)
+                == jconv._same_fft_size(n_img, n_ker))
+
+
+@pytest.mark.parametrize("nk", [1, 5])
+def test_convolution_backends(nk):
+    rng = np.random.default_rng(7)
+    p = rng.standard_normal((5, 40, 40))
+    k = rng.standard_normal((nk, 41, 41))
+    pt, kt = torch.as_tensor(p), torch.as_tensor(k)
+    for name in ("_fft_convolve_same", "_dft_convolve_same",
+                 "_direct_convolve_same"):
+        got = getattr(tconv, name)(pt, kt, 40, 41).numpy()
+        want = getattr(jconv, name)(jnp.asarray(p), jnp.asarray(k), 40, 41)
+        _close(got, want, 1e-10)
+
+
+@pytest.mark.parametrize("use_fft,fused", [(True, False), (False, False),
+                                           (False, True)])
+def test_convolve_final_matches_jax(use_fft, fused):
+    tc = TTINY.with_(dtype="float64", use_fft=use_fft,
+                     use_fused_conv=fused)
+    jc = JTINY.with_(dtype="float64", use_fft=use_fft)
+    rng = np.random.default_rng(2)
+    psf = rng.random((2, 3, 8, 8))
+    lb = np.array([500.0, 700.0, 900.0])
+    s, g, l0 = np.array([1.0, 0.6]), np.array([0.7, 0.3]), \
+        np.array([25.0, 9.1])
+    got = tconv.convolve_final(*(torch.as_tensor(x)
+                                 for x in (psf, lb, s, g, l0)), tc).numpy()
+    for b in range(2):
+        want = jconv.convolve_final(jnp.asarray(psf[b]), jnp.asarray(lb),
+                                    s[b], g[b], l0[b], jc)
+        _close(got[b], want, 1e-10)
+
+
+@pytest.mark.parametrize("n_img,nl", [(40, 35), (8, 3)])
+def test_plain_k2_matches_pallas_interpret(n_img, nl):
+    n_ker = n_img + 1
+    L = tconv._same_fft_size(n_img, n_ker)
+    rng = np.random.default_rng(1)
+    B = 2
+    planes = rng.random((B, nl, n_img, n_img)).astype(np.float32)
+    ktt = rng.random((B, n_ker, n_ker)).astype(np.float32)
+    ki = rng.random((nl, n_ker, n_ker)).astype(np.float32)
+    gtt_r, gtt_i = tconv._dft_spectra(torch.as_tensor(ktt), L)
+    gi_r, gi_i = tconv._dft_spectra(torch.as_tensor(ki), L)
+    got = tchain.fused_conv_chain_reference(
+        torch.as_tensor(planes), gtt_r, gtt_i, gi_r, gi_i, n_ker).numpy()
+    for b in range(B):
+        want = jchain(jnp.asarray(planes[b]), jnp.asarray(gtt_r[b].numpy()),
+                      jnp.asarray(gtt_i[b].numpy()),
+                      jnp.asarray(gi_r.numpy()), jnp.asarray(gi_i.numpy()),
+                      n_img, n_ker, pack=2, interpret=True)
+        _close(got[b], want, 1e-6)
+
+
+def test_tip_tilt_fwhm():
+    s, g, l0 = np.array([0.6, 1.0, 1.6]), np.array([0.3, 0.7, 0.9]), \
+        np.array([9.1, 25.0, 28.9])
+    got = tconv.tip_tilt_fwhm(*(torch.as_tensor(x) for x in (s, g, l0)),
+                              TTINY).numpy()
+    for b in range(3):
+        want = float(jconv.tip_tilt_fwhm(s[b], g[b], jnp.asarray(l0[b]),
+                                         JTINY))
+        assert abs(got[b] - want) <= 1e-12 * abs(want)
+
+
+def test_cpu_wrapper_is_the_plain_version():
+    rng = np.random.default_rng(4)
+    planes = torch.as_tensor(rng.random((1, 2, 8, 8)))
+    spectra = [torch.as_tensor(rng.random(s))
+               for s in ((1, 16, 16), (1, 16, 16), (2, 16, 16),
+                         (2, 16, 16))]
+    before = tchain.LAUNCHES
+    got = tchain.fused_conv_chain(planes, *spectra, 9)
+    assert torch.equal(got, tchain.fused_conv_chain_reference(planes,
+                                                              *spectra, 9))
+    assert tchain.LAUNCHES == before

@@ -1,0 +1,80 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions on
+the card (K1 <= 1e-5, K2 <= 1e-6 relative max-abs), and the batch night
+through both kernels.  Marked ``cuda``: skipped where no CUDA card is
+present (CUDA kernels have no CPU mode).  On a GPU machine:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
+
+(``--noconftest``: the repository's conftest imports JAX, which a GPU
+machine need not have; this file imports none.)
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from muse_psfr_tpu_torch.config import TINY_CONFIG  # noqa: E402
+from muse_psfr_tpu_torch.ops import _build, conv_dft, zoom_dft  # noqa: E402
+from muse_psfr_tpu_torch.otf.convolve import _same_fft_size  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from muse_psfr_tpu_torch.utils.device import resolve_device
+    return resolve_device("cuda")
+
+
+def _rel(got, want):
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max())
+
+
+@pytest.mark.parametrize("ndir,n,ncols,m2,exp2", [
+    (1, 256, 256, 32, True), (3, 96, 80, 24, False), (1, 64, 128, 200, True)])
+def test_zoom_kernel_matches_plain(dev, ndir, n, ncols, m2, exp2):
+    g = torch.Generator(device="cpu").manual_seed(0)
+    B, nl = 2, 3
+    dphi = torch.rand((B, ndir, n, ncols), generator=g) * 40
+    dl = torch.rand((n, ncols), generator=g)
+    a2 = torch.randn((nl, m2, n), generator=g) / n
+    alpha = -0.1 - 0.2 * torch.rand((nl,), generator=g)
+    w = 0.5 + torch.rand((B, nl, ndir), generator=g)
+    args = [x.to(dev) for x in (dphi, dl, a2, alpha, w)]
+    before = zoom_dft.LAUNCHES
+    got = zoom_dft.fused_exp_zoom(*args, exp2=exp2)
+    assert zoom_dft.LAUNCHES == before + 1
+    assert _rel(got, zoom_dft.fused_exp_zoom_reference(*args,
+                                                       exp2=exp2)) <= 1e-5
+
+
+@pytest.mark.parametrize("B,nl,n", [(2, 3, 8), (3, 35, 40)])
+def test_conv_kernel_matches_plain(dev, B, nl, n):
+    g = torch.Generator(device="cpu").manual_seed(1)
+    L = _same_fft_size(n, n + 1)
+    args = [torch.rand(s, generator=g).to(dev)
+            for s in ((B, nl, n, n), (B, L, L), (B, L, L), (nl, L, L),
+                      (nl, L, L))]
+    before = conv_dft.LAUNCHES
+    got = conv_dft.fused_conv_chain(*args, n + 1)
+    assert conv_dft.LAUNCHES == before + 1
+    assert _rel(got, conv_dft.fused_conv_chain_reference(*args,
+                                                         n + 1)) <= 1e-6
+
+
+def test_night_runs_both_kernels(dev):
+    from muse_psfr_tpu_torch.parallel.batch import process_batch
+    _build.reset_launch_counts()
+    cfg = TINY_CONFIG.with_(use_fft=False)
+    args = ([1.0, 0.8, 1.3], [0.7, 0.5, 0.4], [25.0, 14.0, 2.0],
+            np.ones((3, 4)), [750.0, 900.0])
+    fit, psf_mean, _ = process_batch(*args, cfg=cfg, chunk=2, device="cuda")
+    counts = _build.launch_counts()
+    assert counts["zoom_dft"] > 0 and counts["conv_dft"] > 0
+    ref = process_batch(*args, cfg=cfg, chunk=2, device="cpu")
+    assert np.abs(psf_mean - ref[1]).max() <= 1e-5 * np.abs(ref[1]).max()
+    assert np.all(fit[..., -1] == 1.0)

@@ -1,0 +1,83 @@
+"""The PyTorch port imports no JAX, builds nothing at import, uses a
+kernel's plain version only for CPU tensors, and never falls back to the
+CPU when CUDA was asked for."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from muse_psfr_tpu_torch.config import TINY_CONFIG  # noqa: E402
+from muse_psfr_tpu_torch.ops import _build, conv_dft, zoom_dft  # noqa: E402
+from muse_psfr_tpu_torch.parallel import batch  # noqa: E402
+from muse_psfr_tpu_torch.utils.device import resolve_device  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import pkgutil, importlib, sys
+import muse_psfr_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+from muse_psfr_tpu_torch.ops import _build
+assert _build._LIB is None, "a kernel was built at import"
+bad = sorted(k for k in sys.modules
+             if k in ("jax", "muse_psfr_tpu")
+             or k.startswith(("jax.", "jaxlib", "muse_psfr_tpu.")))
+print("IMPORTED", len([k for k in sys.modules if k.startswith(pkg.__name__)]))
+print("BAD", bad)
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    n = int(out.stdout.split("IMPORTED")[1].split()[0])
+    assert n >= 20, out.stdout
+
+
+def test_cpu_tensors_take_the_plain_path_without_launching():
+    before = _build.launch_counts()
+    fit, psf_mean, _ = batch.process_batch(
+        [1.0, 0.8], [0.7, 0.5], [25.0, 14.0], np.ones((2, 4)),
+        [800.0, 900.0], cfg=TINY_CONFIG.with_(use_fft=False), chunk=2,
+        device="cpu")
+    assert np.all(np.isfinite(fit)) and np.all(np.isfinite(psf_mean))
+    assert _build.launch_counts() == before
+    assert set(before) == {"zoom_dft", "conv_dft"}
+    assert before["zoom_dft"] == zoom_dft.LAUNCHES
+    assert before["conv_dft"] == conv_dft.LAUNCHES
+
+
+def test_cuda_request_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        batch.process_batch([1.0], [0.7], [25.0], np.ones((1, 4)), [900.0],
+                            cfg=TINY_CONFIG)       # device defaults to cuda
+
+
+def test_float64_with_fused_kernels_on_cuda_is_refused():
+    cfg64 = TINY_CONFIG.with_(dtype="float64")
+    with pytest.raises(ValueError, match="float32"):
+        batch._check_device_dtype(cfg64, torch.device("cuda"))
+    batch._check_device_dtype(cfg64, torch.device("cpu"))
+    batch._check_device_dtype(cfg64.with_(use_fused_zoom=False,
+                                          use_fused_conv=False),
+                              torch.device("cuda"))
+
+
+def test_reset_launch_counts():
+    zoom_dft.LAUNCHES, conv_dft.LAUNCHES = 3, 4
+    assert _build.launch_counts() == {"zoom_dft": 3, "conv_dft": 4}
+    _build.reset_launch_counts()
+    assert _build.launch_counts() == {"zoom_dft": 0, "conv_dft": 0}

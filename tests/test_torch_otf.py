@@ -1,0 +1,144 @@
+"""otf/psf.py of the PyTorch port against the JAX package: host tables, the
+structure function (split and exact, FFT and DFT-matmul, with and without
+the symmetry fold), the npixc .5 rounding quirk, and the fused chunk step
+against the JAX XLA ``one_lambda`` path (float64, <= 1e-10 x max|ref|)."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from muse_psfr_tpu.config import TINY_CONFIG as JTINY  # noqa: E402
+from muse_psfr_tpu.config import GalacsiConfig as JConfig  # noqa: E402
+from muse_psfr_tpu.otf import psf as jpsf  # noqa: E402
+from muse_psfr_tpu_torch.config import TINY_CONFIG as TTINY  # noqa: E402
+from muse_psfr_tpu_torch.config import GalacsiConfig as TConfig  # noqa: E402
+from muse_psfr_tpu_torch.otf import psf as tpsf  # noqa: E402
+from muse_psfr_tpu_torch.psd import model as tpsd  # noqa: E402
+
+H = (100.0, 10000.0)
+LB = np.array([750.0, 800.0, 850.0, 900.0])
+SEEING, GL, L0 = np.array([1.0, 0.7]), np.array([0.7, 0.4]), \
+    np.array([25.0, 12.0])
+MASK = np.array([[1.0, 1, 1, 1], [1, 1, 1, 0]])
+
+
+def _t(a):
+    return torch.as_tensor(np.asarray(a), dtype=torch.float64)
+
+
+def _close(got, want, tol=1e-10):
+    want = np.asarray(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    assert np.abs(got - want).max() <= tol * np.abs(want).max()
+
+
+def _cfgs(**kw):
+    return (TTINY.with_(dtype="float64", **kw),
+            JTINY.with_(dtype="float64", **kw))
+
+
+def _split_inputs(tc, npsflin=1):
+    return tpsd.simulate_psd_split(_t(SEEING), _t(GL), _t(L0), _t(MASK), H,
+                                   12.0, npsflin, tc)
+
+
+def test_host_tables_equal():
+    tc, jc = _cfgs()
+    assert np.array_equal(tpsf.pupil_otf(tc),
+                          np.asarray(jpsf.pupil_otf(jc)))
+    assert np.array_equal(tpsf.fitting_dphi_basis(tc),
+                          jpsf._fitting_dphi_basis_np(jc))
+    for S in (64, 128):
+        assert np.array_equal(tpsf._fold_weights(256, S, 256),
+                              np.asarray(jpsf._fold_weights(256, S, 256,
+                                                            jnp.float64)))
+
+
+@pytest.mark.parametrize("kw", [{}, {"use_sym_fold": False},
+                                {"otf_support": 128, "dim": 512,
+                                 "dim_pup": 16}])
+def test_dphi_base_split(kw):
+    tc, jc = _cfgs(**kw)
+    w, delta = _split_inputs(tc, npsflin=3 if not kw else 1)
+    got = tpsf.dphi_base_split(w, delta, tc).numpy()
+    for b in range(2):
+        want = jpsf.dphi_base_split(jnp.asarray(w[b].numpy()),
+                                    jnp.asarray(delta[b].numpy()), jc)
+        _close(got[b], want)
+
+
+@pytest.mark.parametrize("use_fft", [True, False])
+@pytest.mark.parametrize("fold", [True, False])
+def test_dphi_base_exact(use_fft, fold):
+    tc, jc = _cfgs(use_fft=use_fft, use_sym_fold=fold)
+    psd = tpsd.simulate_psd(_t(SEEING), _t(GL), _t(L0), _t(MASK), H, 12.0,
+                            1, tc)
+    got = tpsf.dphi_base(psd, tc).numpy()
+    for b in range(2):
+        _close(got[b], jpsf.dphi_base(jnp.asarray(psd[b].numpy()), jc))
+
+
+def test_npixc_half_boundary_quirk():
+    """Plane 19 of linspace(500, 900, 37) has raw/2 == 436.5 exactly in
+    float64: banker's rounding gives 872 (a float32 quotient gives 874)."""
+    lb = np.linspace(500, 900, 37)
+    got = tpsf.lambda_crop_size(lb, TConfig())
+    assert got[19] == 872
+    assert np.array_equal(got, np.asarray(jpsf.lambda_crop_size(
+        lb, JConfig())))
+
+
+@pytest.mark.parametrize("kw", [{}, {"use_sym_fold": False},
+                                {"zoom_exp2": False}])
+def test_fused_chunk_matches_jax_one_lambda(kw):
+    """The port's fused step (K1's plain version on the CPU) against the
+    JAX package's XLA per-wavelength body on the same structure function."""
+    tc, jc = _cfgs(**kw)
+    w, delta = _split_inputs(tc)
+    base = tpsf.dphi_base_split(w, delta, tc)
+    npix = tpsf.lambda_crop_size(LB, tc)
+    got = tpsf._psf_chunk_fused(base, _t(LB), torch.as_tensor(npix),
+                                tc).numpy()
+    plain = tpsf._psf_chunk_plain(base, _t(LB), torch.as_tensor(npix),
+                                  tc).numpy()
+    for b in range(2):
+        want = jpsf.psf_cube_from_base(jnp.asarray(base[b].numpy()), LB, jc)
+        _close(got[b], want)
+        _close(plain[b], want)
+
+
+def test_fft_regrid_path_matches_jax():
+    """use_zoom_dft=False: full inverse FFT + bilinear regrid."""
+    tc, jc = _cfgs(use_zoom_dft=False)
+    psd = tpsd.simulate_psd(_t(SEEING), _t(GL), _t(L0), _t(MASK), H, 12.0,
+                            1, tc)
+    base = tpsf.dphi_base(psd, tc)
+    got = tpsf.psf_cube_from_base(base, LB, tc).numpy()
+    for b in range(2):
+        want = jpsf.psf_cube_from_base(jnp.asarray(base[b].numpy()), LB, jc)
+        _close(got[b], want)
+
+
+def test_float32_fused_chunk_close_to_float64():
+    tc, _ = _cfgs()
+    w, delta = _split_inputs(tc)
+    base = tpsf.dphi_base_split(w, delta, tc)
+    ref = tpsf.psf_cube_from_base(base, LB, tc).numpy()
+    c32 = tc.with_(dtype="float32")
+    got = tpsf.psf_cube_from_base(base.float(), LB, c32).numpy()
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_unported_and_invalid_options_raise():
+    tc, _ = _cfgs()
+    base = torch.zeros((1, 1, 256, 256), dtype=torch.float64)
+    with pytest.raises(NotImplementedError):
+        tpsf.psf_cube_from_base(base, LB, tc.with_(otf_blue=(2, 128)))
+    with pytest.raises(ValueError):
+        tpsf.psf_cube_from_base(base[..., :128], LB, tc)
+    with pytest.raises(ValueError):
+        tpsf.psf_cube_from_base(base, LB, tc.with_(use_fft=False,
+                                                   use_zoom_dft=False))
