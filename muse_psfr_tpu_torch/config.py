@@ -8,8 +8,9 @@ Two knobs were renamed because they no longer select a Pallas kernel:
 ``use_pallas`` is :attr:`GalacsiConfig.use_fused_zoom` (the hand-written
 exp+zoom-DFT kernel, ``ops/zoom_dft.py``) and ``use_pallas_conv`` is
 :attr:`GalacsiConfig.use_fused_conv` (the convolution-chain kernel,
-``ops/conv_dft.py``).  The knobs that size TPU VMEM or select kernel
-variants the port does not have yet are listed in :data:`NOT_YET_PORTED`.
+``ops/conv_dft.py``).  The knobs that only size or lay out TPU VMEM grid
+steps are listed in :data:`TPU_LAYOUT_ONLY`; those that select kernel
+variants the port does not have yet in :data:`NOT_YET_PORTED`.
 
 The JAX ``*_precision`` fields choose TPU matmul pass counts.  The port
 runs every contraction in full float32 (TF32 off, see ``utils/device.py``),
@@ -22,16 +23,20 @@ from dataclasses import dataclass, replace
 #: JAX config fields renamed in the port: {jax name: port name}
 RENAMED = {"use_pallas": "use_fused_zoom", "use_pallas_conv": "use_fused_conv"}
 
-#: JAX config fields with no counterpart yet: they size the TPU kernels'
-#: VMEM, choose TPU matmul pass counts, or select kernel variants
-#: (direction blocks, the disc split, the anchored-Taylor damping) and
-#: planner tiers still queued in ROADMAP.md
+#: JAX config fields that only size or lay out the TPU kernels' VMEM grid
+#: steps (wavelengths per launch, directions per step); they mean nothing
+#: on the card, where K1 takes every wavelength in one launch and sums
+#: every direction in registers
+TPU_LAYOUT_ONLY = ("pallas_lambda_chunk", "pallas_dir_block")
+
+#: JAX config fields with no counterpart yet: they choose TPU matmul pass
+#: counts, pack lanes of a TPU vector register, or select kernel variants
+#: still queued in ROADMAP.md (the disc split, the anchored-Taylor damping)
 NOT_YET_PORTED = (
     "matmul_precision", "zoom_precision", "conv_precision",
-    "pallas_lambda_chunk", "pallas_dir_block", "pallas_conv_pack",
-    "pallas_disc_skip", "pallas_disc_min_ndir",
+    "pallas_conv_pack", "pallas_disc_skip", "pallas_disc_min_ndir",
     "zoom_anchor", "zoom_anchor_degree", "zoom_anchor_budget",
-    "zoom_anchor_min_ndir", "blue_tiers",
+    "zoom_anchor_min_ndir",
 )
 
 
@@ -93,10 +98,14 @@ class GalacsiConfig:
                                # mirrors weighted 2); needs dim % 256 == 0
                                # and the zoom-DFT path
     otf_support: int = 0       # OTF support inf-radius [px]; 0 = full
-                               # half grid (the batch layer runs the full
-                               # window: support buckets are not ported)
-    otf_blue: tuple = None     # blue-segment window split: not ported
-                               # (psf_cube_from_base raises)
+                               # half grid, and the batch planner buckets
+                               # rows into windows (parallel/batch.py)
+    otf_blue: tuple = None     # (nb, S_blue): the bluest nb wavelengths
+                               # run on the smaller centred sub-window
+                               # S_blue; set per group by the planner
+    blue_tiers: int = 0        # max blue subgroups the planner may form
+                               # per support bucket; 0 = auto: 2 at
+                               # ndir >= 9, else 1
     use_fused_zoom: bool = True  # hand-written exp+zoom-DFT kernel
                                # (ops/zoom_dft.py) on CUDA float32
     use_fused_conv: bool = True  # hand-written conv-chain kernel

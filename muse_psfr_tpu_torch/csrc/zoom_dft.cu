@@ -1,8 +1,13 @@
-// K1: fused direction-averaged system OTF x zoom-DFT stage 1, for Hopper.
+// K1 and K3: fused direction-averaged system OTF x zoom-DFT stage 1, for
+// Hopper.
 //
-// Replaces muse_psfr_tpu/ops/zoom_dft.py:fused_exp_zoom with its
-// single-step body _kernel_dirfull (the ndir=1 main path).  Per telemetry
-// row b and wavelength l it computes
+// Replaces muse_psfr_tpu/ops/zoom_dft.py:fused_exp_zoom with its bodies
+// _kernel_dirfull (K1), _kernel and _kernel_dirblock (K1', K4: the same
+// function with the directions summed over VMEM grid steps; here every
+// element of the G tile sums all ndir directions in registers before it
+// reaches shared memory, which is what those bodies compute for any
+// dir_block) and _kernel_rowacc (K3).  Per telemetry row b and wavelength
+// l it computes
 //
 //     G[n, j] = sum_d exp(alpha_l * D[b, d, n, j]) * w[b, l, d] * dl[n, j]
 //     U[b, l] = A2_l @ G                       (2M x N) @ (N x ncols)
@@ -21,9 +26,21 @@
 // "high").  Tensor cores (wgmma with a 3-pass bf16/tf32 split, the
 // analogue of "high") and TMA staging are later work.
 //
-// Grid: (column tiles x output-row blocks, wavelengths, rows).  The
-// damping is exp(alpha*D)*w, or with use_exp2 != 0 exp2(alpha*D + w),
-// where the caller passed alpha*log2(e) and log2(w) (cfg.zoom_exp2).
+// Grid: (column tiles x output-row blocks x row slices, wavelengths,
+// rows).  The damping is exp(alpha*D)*w, or with use_exp2 != 0
+// exp2(alpha*D + w), where the caller passed alpha*log2(e) and log2(w)
+// (cfg.zoom_exp2).  D may be a strided view (the blue sub-window of a
+// structure function): the kernel takes its row, direction and batch
+// strides; its columns are contiguous.
+//
+// K3 (row_splits R > 1): the block of row slice r contracts only rows
+// [r*n/R, (r+1)*n/R) with the same tile loop and writes its partial
+// (160 x 64) product to a workspace slab r of shape (B, nl, m2, ncols);
+// sum_row_slices then adds the R slabs in the fixed order r = 0..R-1
+// (no atomics, so reruns are bit-identical).  On the TPU the slices ran
+// in sequence into a VMEM-resident output block, to fit VMEM; here they
+// run in parallel, to give a launch of one or a few rows enough blocks
+// to fill the 132 SMs (otf/psf.py:_zoom_row_splits).
 
 #include <cuda_runtime.h>
 
@@ -38,18 +55,20 @@ constexpr int RY = TI / 16;   // rows per thread
 
 __global__ void __launch_bounds__(NT)
 fused_exp_zoom_kernel(const float* __restrict__ dphi,   // (B, ndir, n, ncols)
+                      long long sb, long long sd, long long sr,  // its strides
                       const float* __restrict__ dl,     // (n, ncols)
                       const float* __restrict__ a2,     // (nl, m2, n)
                       const float* __restrict__ alpha,  // (nl,)
                       const float* __restrict__ w,      // (B, nl, ndir)
-                      float* __restrict__ u,            // (B, nl, m2, ncols)
-                      int ndir, int n, int ncols, int nl, int m2,
-                      int use_exp2, int nib) {
+                      float* __restrict__ out,  // (R, B, nl, m2, ncols)
+                      int B, int ndir, int n, int ncols, int nl, int m2,
+                      int use_exp2, int nib, int R) {
   __shared__ __align__(16) float gs[TK][TJ];
   __shared__ float as[TK][TI + 1];   // +1: conflict-free transposed stores
 
-  const int jt = blockIdx.x / nib;
-  const int ib = blockIdx.x % nib;
+  const int r = blockIdx.x % R;
+  const int jt = blockIdx.x / R / nib;
+  const int ib = blockIdx.x / R % nib;
   const int l = blockIdx.y;
   const int b = blockIdx.z;
   const int j0 = jt * TJ;
@@ -57,11 +76,12 @@ fused_exp_zoom_kernel(const float* __restrict__ dphi,   // (B, ndir, n, ncols)
   const int t = threadIdx.x;
   const int tx = t % 16;
   const int ty = t / 16;
+  const int h = n / R;               // rows of this slice: [r*h, (r+1)*h)
+  const int n_lo = r * h, n_hi = n_lo + h;
 
   const float al = alpha[l];
   const float* wl = w + ((size_t)b * nl + l) * ndir;
-  const size_t dstride = (size_t)n * ncols;
-  const float* db = dphi + (size_t)b * ndir * dstride;
+  const float* db = dphi + (size_t)b * sb;
   const float* al2 = a2 + (size_t)l * m2 * n;
 
   float acc[RY][RX];
@@ -70,19 +90,19 @@ fused_exp_zoom_kernel(const float* __restrict__ dphi,   // (B, ndir, n, ncols)
 #pragma unroll
     for (int c = 0; c < RX; ++c) acc[r][c] = 0.f;
 
-  for (int n0 = 0; n0 < n; n0 += TK) {
+  for (int n0 = n_lo; n0 < n_hi; n0 += TK) {
     // G tile: the direction-averaged, damped OTF for rows n0..n0+TK
     for (int q = t; q < TK * TJ; q += NT) {
       const int kk = q / TJ, jj = q % TJ;
       const int row = n0 + kk, col = j0 + jj;
       float g = 0.f;
-      if (row < n && col < ncols) {
-        const size_t off = (size_t)row * ncols + col;
+      if (row < n_hi && col < ncols) {
+        const float* dp = db + (size_t)row * sr + col;
         for (int d = 0; d < ndir; ++d) {
-          const float x = db[d * dstride + off];
+          const float x = dp[(size_t)d * sd];
           g += use_exp2 ? exp2f(al * x + wl[d]) : expf(al * x) * wl[d];
         }
-        g *= dl[off];
+        g *= dl[(size_t)row * ncols + col];
       }
       gs[kk][jj] = g;
     }
@@ -90,7 +110,8 @@ fused_exp_zoom_kernel(const float* __restrict__ dphi,   // (B, ndir, n, ncols)
     for (int q = t; q < TK * TI; q += NT) {
       const int ii = q / TK, kk = q % TK;
       const int row = i0 + ii, col = n0 + kk;
-      as[kk][ii] = (row < m2 && col < n) ? al2[(size_t)row * n + col] : 0.f;
+      as[kk][ii] =
+          (row < m2 && col < n_hi) ? al2[(size_t)row * n + col] : 0.f;
     }
     __syncthreads();
 #pragma unroll 4
@@ -108,7 +129,7 @@ fused_exp_zoom_kernel(const float* __restrict__ dphi,   // (B, ndir, n, ncols)
     __syncthreads();
   }
 
-  float* ub = u + ((size_t)b * nl + l) * m2 * ncols;
+  float* ub = out + (((size_t)r * B + b) * nl + l) * m2 * ncols;
 #pragma unroll
   for (int r = 0; r < RY; ++r) {
     const int row = i0 + ty * RY + r;
@@ -121,18 +142,45 @@ fused_exp_zoom_kernel(const float* __restrict__ dphi,   // (B, ndir, n, ncols)
   }
 }
 
+// K3's second pass: u[i] = ((ws[0][i] + ws[1][i]) + ...) + ws[R-1][i],
+// in that order.
+__global__ void sum_row_slices(const float* __restrict__ ws,  // (R, total)
+                               float* __restrict__ u, long long total,
+                               int R) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < total; i += (long long)gridDim.x * blockDim.x) {
+    float s = ws[i];
+    for (int r = 1; r < R; ++r) s += ws[(size_t)r * total + i];
+    u[i] = s;
+  }
+}
+
 }  // namespace
 
-// Launches K1 on `stream`; returns cudaGetLastError() (0 = launched).
+// Launches K1 (row_splits == 1: writes u, ws is unused) or K3 (the R row
+// slices into the workspace ws of R * B * nl * m2 * ncols floats, then
+// their ordered sum into u) on `stream`; returns cudaGetLastError()
+// (0 = launched).
 extern "C" int muse_fused_exp_zoom(const float* dphi, const float* dl,
                                    const float* a2, const float* alpha,
-                                   const float* w, float* u, int B, int ndir,
-                                   int n, int ncols, int nl, int m2,
-                                   int use_exp2, void* stream) {
+                                   const float* w, float* ws, float* u,
+                                   long long sb, long long sd, long long sr,
+                                   int B, int ndir, int n, int ncols, int nl,
+                                   int m2, int row_splits, int use_exp2,
+                                   void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int R = row_splits;
   const int nib = (m2 + TI - 1) / TI;
   const int njt = (ncols + TJ - 1) / TJ;
-  const dim3 grid(njt * nib, nl, B);
-  fused_exp_zoom_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      dphi, dl, a2, alpha, w, u, ndir, n, ncols, nl, m2, use_exp2, nib);
+  const dim3 grid(njt * nib * R, nl, B);
+  fused_exp_zoom_kernel<<<grid, NT, 0, st>>>(
+      dphi, sb, sd, sr, dl, a2, alpha, w, R > 1 ? ws : u, B, ndir, n, ncols,
+      nl, m2, use_exp2, nib, R);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || R == 1) return static_cast<int>(err);
+  const long long total = (long long)B * nl * m2 * ncols;
+  const long long want = (total + NT - 1) / NT;
+  const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
+  sum_row_slices<<<blocks, NT, 0, st>>>(ws, u, total, R);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,9 +7,10 @@ interface.  :func:`library` compiles them on first use with ``nvcc`` for
 it with ``ctypes``.  Importing this module builds nothing: the CPU tests
 import every module on machines without ``nvcc``.
 
-Each kernel module keeps a plain integer ``LAUNCHES``, incremented by its
-wrapper right after a successful launch; :func:`launch_counts` and
-:func:`reset_launch_counts` read and clear them together.
+Each kernel keeps a plain integer counter on its module (:data:`KERNELS`),
+incremented by its wrapper right after a successful launch;
+:func:`launch_counts` and :func:`reset_launch_counts` read and clear them
+together.
 """
 
 import ctypes
@@ -29,8 +30,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-#: kernel modules (under ``muse_psfr_tpu_torch.ops``) with a launch count
-KERNELS = ("zoom_dft", "conv_dft")
+#: {kernel: (module under ``muse_psfr_tpu_torch.ops``, its launch counter)}
+KERNELS = {"zoom_dft": ("zoom_dft", "LAUNCHES"),
+           "zoom_dft_rowsplit": ("zoom_dft", "ROWSPLIT_LAUNCHES"),
+           "conv_dft": ("conv_dft", "LAUNCHES")}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -40,8 +43,10 @@ BUILD_LOG = ""
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # dphi, dl, a2, alpha, w, u, B, ndir, n, ncols, nl, m2, exp2, stream
-    "muse_fused_exp_zoom": [_P] * 6 + [_I] * 7 + [_P],
+    # dphi, dl, a2, alpha, w, ws, u, 3 dphi strides, B, ndir, n, ncols,
+    # nl, m2, row_splits, exp2, stream
+    "muse_fused_exp_zoom": [_P] * 7 + [ctypes.c_longlong] * 3 + [_I] * 8
+    + [_P],
     # planes, gtt_r, gtt_i, gi_r, gi_i, 6 matrices, out, B, nl, n, L, stream
     "muse_fused_conv_chain": [_P] * 12 + [_I] * 4 + [_P],
 }
@@ -98,8 +103,10 @@ def check_launch(err: int, name: str):
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
-def check_operands(name, device, operands):
-    """Device, dtype, shape and contiguity of a kernel's inputs."""
+def check_operands(name, device, operands, unit_stride_only=False):
+    """Device, dtype, shape and contiguity of a kernel's inputs; with
+    ``unit_stride_only`` a view whose last dimension has unit stride is
+    enough (the kernel takes the other strides)."""
     if device.type != "cuda":
         raise ValueError(f"{name}: tensors must be on CPU or CUDA, "
                          f"got {device}")
@@ -115,16 +122,20 @@ def check_operands(name, device, operands):
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
                              f"expected {tuple(shape)}")
-        if not t.is_contiguous():
+        if unit_stride_only:
+            if t.stride(-1) != 1:
+                raise ValueError(f"{name}: {key} needs unit stride in its "
+                                 "last dimension")
+        elif not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
 
 
 def launch_counts() -> dict:
-    """{kernel module name: LAUNCHES}."""
-    return {k: importlib.import_module(f"{__package__}.{k}").LAUNCHES
-            for k in KERNELS}
+    """{kernel: launches since the last reset}."""
+    return {k: getattr(importlib.import_module(f"{__package__}.{mod}"), attr)
+            for k, (mod, attr) in KERNELS.items()}
 
 
 def reset_launch_counts():
-    for k in KERNELS:
-        importlib.import_module(f"{__package__}.{k}").LAUNCHES = 0
+    for mod, attr in KERNELS.values():
+        setattr(importlib.import_module(f"{__package__}.{mod}"), attr, 0)

@@ -16,8 +16,10 @@ reformulations carry over:
    computed, mirrors weighted 2 in the second zoom stage.
 
 The fused step :func:`_psf_chunk_fused` runs the first zoom stage through
-K1 (``ops/zoom_dft.py``); :func:`_psf_chunk_plain` is the unfused
-per-wavelength body.
+K1, or K3 where a launch has too few blocks for the card
+(``ops/zoom_dft.py``); :func:`_psf_chunk_plain` is the unfused
+per-wavelength body.  ``cfg.otf_blue`` runs the bluest wavelengths on a
+smaller centred sub-window of the same structure function.
 """
 
 import numpy as np
@@ -32,6 +34,7 @@ from ..utils.device import host_const
 
 _PUPIL_OTF_CACHE = {}
 _DPHI_BASIS_CACHE = {}
+_BASIS_RING_CACHE = {}
 
 
 def _pupil_key(cfg: GalacsiConfig):
@@ -139,6 +142,33 @@ def fitting_dphi_basis(cfg: GalacsiConfig):
             ts.append(np.fft.fftshift(2.0 * (bg[0, 0] - bg)))
         _DPHI_BASIS_CACHE[key] = np.stack(ts)
     return _DPHI_BASIS_CACHE[key]
+
+
+def fitting_dphi_ring_envelopes(cfg: GalacsiConfig):
+    """Ring-wise min/max of the fitting structure-function basis: for each
+    ``T_k`` (:func:`fitting_dphi_basis`) and each inf-norm radius ``r =
+    max(|i-c|, |j-c|)`` in ``0..dim/2``, float64 ``(tmin, tmax)`` of shape
+    (degree+1, dim/2+1), host numpy, cached in memory.  The planner's
+    admission model (``parallel/batch.py:_ring_damping``) lower-bounds
+    ``D_fit = sum_k w_k T_k`` per ring with them, whatever the signs of the
+    telemetry-dependent weights."""
+    key = _basis_key(cfg)
+    if key not in _BASIS_RING_CACHE:
+        arr = fitting_dphi_basis(cfg)
+        c = cfg.dim // 2
+        ii = np.abs(np.arange(cfg.dim) - c)
+        ring = np.maximum(ii[:, None], ii[None, :]).ravel()
+        flat = arr.reshape(arr.shape[0], -1)
+        # segment reductions by sort + reduceat; every ring 0..c is
+        # non-empty
+        order = np.argsort(ring, kind="stable")
+        bounds = np.searchsorted(ring[order], np.arange(c + 1))
+        tmin = np.stack([np.minimum.reduceat(f[order], bounds)
+                         for f in flat])
+        tmax = np.stack([np.maximum.reduceat(f[order], bounds)
+                         for f in flat])
+        _BASIS_RING_CACHE[key] = (tmin, tmax)
+    return _BASIS_RING_CACHE[key]
 
 
 def _windowed_basis(cfg, device, dtype):
@@ -329,21 +359,49 @@ def _zoom_operands(base, lb_k, npix_k, cfg: GalacsiConfig):
     return a2, alpha.contiguous(), w, ar2, ai2, t
 
 
+def _zoom_row_splits(n_blocks: int, n: int, sm_count: int) -> int:
+    """Contraction-row slices R of the fused zoom launch on the card
+    (counterpart of ``_pallas_zoom_plan``).  ``n_blocks`` is K1's grid
+    (rows x wavelengths x 64-column tiles x 160-row output blocks), ``n``
+    the contraction length.  Among R in (1, 2, 4, 8) with ``n % R == 0``
+    and ``(n // R) % 32 == 0``, the smallest whose grid ``n_blocks * R``
+    gives every SM a block, else the largest valid R.  On the TPU a split
+    let a block fit VMEM; here it only fills the SMs when a launch is too
+    small to (single-row calls: the CLI block, ``compute_psf``)."""
+    valid = [r for r in (1, 2, 4, 8) if n % r == 0 and (n // r) % 32 == 0]
+    for r in valid:
+        if n_blocks * r >= sm_count:
+            return r
+    return valid[-1] if valid else 1
+
+
 def _psf_chunk_fused(base, lb_k, npix_k, cfg: GalacsiConfig):
     """Fused path for one wavelength chunk (counterpart of
     ``_psf_chunk_pallas``): K1 builds the direction-averaged system OTF
-    tile by tile and contracts it with the first zoom stage; the second
-    stage and the bilinear combine follow as plain contractions.
+    tile by tile and contracts it with the first zoom stage (split over
+    contraction-row slices, K3, where the launch alone would leave SMs
+    idle); the second stage and the bilinear combine follow as plain
+    contractions.
 
-    ``base``: (B, ndir, rows, cols) windowed structure function;
-    ``lb_k``/``npix_k``: (k,) wavelengths [nm] and crop sizes.  Returns
-    (B, k, dimpsf, dimpsf) normalised PSF samples.
+    ``base``: (B, ndir, rows, cols) windowed structure function, which
+    may be a strided view (the blue sub-window); ``lb_k``/``npix_k``: (k,)
+    wavelengths [nm] and crop sizes.  Returns (B, k, dimpsf, dimpsf)
+    normalised PSF samples.
     """
-    from ..ops.zoom_dft import fused_exp_zoom
+    from ..ops.zoom_dft import M_TILE, N_TILE, fused_exp_zoom
     nout = cfg.dimpsf
     a2, alpha, w, ar2, ai2, t = _zoom_operands(base, lb_k, npix_k, cfg)
+    splits = 1
+    if base.device.type == "cuda":
+        B, _, n, ncols = base.shape
+        n_blocks = (B * a2.shape[0] * -(-ncols // N_TILE)
+                    * -(-a2.shape[1] // M_TILE))
+        sms = torch.cuda.get_device_properties(
+            base.device).multi_processor_count
+        splits = _zoom_row_splits(n_blocks, n, sms)
     u = fused_exp_zoom(base, _dl_window(cfg, base.device, base.dtype), a2,
-                       alpha, w, exp2=cfg.zoom_exp2)      # (B, k, 4n, cols)
+                       alpha, w, exp2=cfg.zoom_exp2,
+                       row_splits=splits)                 # (B, k, 4n, cols)
     m = 2 * nout
     p = (torch.matmul(u[:, :, :m], ar2.transpose(-1, -2))
          - torch.matmul(u[:, :, m:], ai2.transpose(-1, -2)))   # (B, k, m, m)
@@ -417,6 +475,28 @@ def _psf_chunk_plain(base, lb_k, npix_k, cfg: GalacsiConfig):
     return out / torch.sum(out, dim=(-2, -1), keepdim=True)
 
 
+def _blue_split_cfgs(cfg: GalacsiConfig, nl: int):
+    """Validate ``cfg.otf_blue`` and return ``(nb, cfg_blue, cfg_red)``:
+    the same config re-rooted on the centred sub-window
+    (``otf_support=S_blue``), and the bucket config with the split
+    cleared."""
+    nb, Sb = (int(x) for x in cfg.otf_blue)
+    win = cfg.otf_window
+    if win is None:
+        raise ValueError("otf_blue requires the fold/window machinery "
+                         "(cfg.otf_window is None)")
+    S = win[1]
+    if Sb % 128 != 0 or not 0 < Sb < S:
+        raise ValueError(
+            f"otf_blue window {Sb} must be a positive multiple of 128 "
+            f"smaller than the bucket window {S}")
+    if not 0 < nb < nl:
+        raise ValueError(
+            f"otf_blue segment length {nb} must satisfy 0 < nb < nl={nl}")
+    cfg_red = cfg.with_(otf_blue=None)
+    return nb, cfg_red.with_(otf_support=Sb), cfg_red
+
+
 def psf_cube_from_base(base, lbda_nm, cfg: GalacsiConfig, npixc=None):
     """PSF cubes (B, nl, dimpsf, dimpsf) from the wavelength-free structure
     function ``base`` (B, ndir, rows, cols), produced by
@@ -426,18 +506,29 @@ def psf_cube_from_base(base, lbda_nm, cfg: GalacsiConfig, npixc=None):
     ``npixc``: crop sizes, decided on the host in float64 from ``lbda_nm``
     when not given (:func:`lambda_crop_size`).  With
     ``cfg.use_fused_zoom`` the whole cube is one K1 launch; otherwise the
-    plain body runs ``cfg.lambda_chunk`` wavelengths per step.
+    plain body runs ``cfg.lambda_chunk`` wavelengths per step.  With
+    ``cfg.otf_blue = (nb, S_blue)`` the first ``nb`` wavelengths run on the
+    centred ``S_blue`` sub-window of ``base``.
     """
-    if cfg.otf_blue is not None:
-        raise NotImplementedError(
-            "otf_blue (the blue-segment window split) is not ported yet; "
-            "see ROADMAP.md, Queue 1")
     dev, dtype = base.device, base.dtype
     dim = cfg.dim
     if npixc is None:
         lb_host = (lbda_nm.cpu().numpy() if torch.is_tensor(lbda_nm)
                    else lbda_nm)
         npixc = lambda_crop_size(lb_host, cfg)
+    if cfg.otf_blue is not None:
+        # blue-segment window split: the damping exponent scales as
+        # (2 pi/lbda)^2, so the bluest nb wavelengths run on the smaller
+        # centred sub-window, a strided view of the same structure
+        # function, through this very body re-rooted on that window
+        nb, cfg_blue, cfg_red = _blue_split_cfgs(cfg, len(npixc))
+        S, Sb = cfg.otf_window[1], cfg_blue.otf_window[1]
+        lo = S - Sb
+        return torch.cat([
+            psf_cube_from_base(base[..., lo:S + Sb, lo:], lbda_nm[:nb],
+                               cfg_blue, npixc=npixc[:nb]),
+            psf_cube_from_base(base, lbda_nm[nb:], cfg_red,
+                               npixc=npixc[nb:])], dim=1)
     win = cfg.otf_window
     expect = (dim, dim) if win is None else (2 * win[1], win[1] + 128)
     if tuple(base.shape[-2:]) != expect:

@@ -1,16 +1,33 @@
 """Batched PSF reconstruction over SPARTA work items (PyTorch).
 
-Counterpart of ``muse_psfr_tpu/parallel/batch.py`` for the full-window
-batch night: telemetry rows (seeing, GL, L0, guide-star mask) are the
-batch dimension of each chunk, and every kernel takes the chunk's rows as
-a launch dimension.  The host planner validates the inputs, decides the
-per-wavelength crop sizes in float64 and groups rows only by transform:
-rows outside the certified split range (``L0 < dphi_split_l0_min``) take
-the exact full-grid transform.  Every group runs the full OTF window (the
-planner's ``force_full`` branch), where nothing is dropped, so no window
-guard is collected; the support buckets, the blue split and the
-window-guard redo are queued in ROADMAP.md.
+Counterpart of ``muse_psfr_tpu/parallel/batch.py``: telemetry rows
+(seeing, GL, L0, guide-star mask) are the batch dimension of each chunk,
+and every kernel takes the chunk's rows as a launch dimension.
+
+The host planner (:func:`plan_batch`, numpy float64 and the CPU only, as
+in the JAX package) validates the inputs, decides the per-wavelength crop
+sizes, and groups rows:
+
+* rows outside the certified split range (``L0 < dphi_split_l0_min``)
+  take the exact full-grid transform;
+* the others go to a reduced OTF-support window (``otf_support =
+  default_support_bucket``) when the host admission model
+  (:func:`rows_windowable`) certifies that their damped OTF is below
+  1e-12 of the DC outside it, and to the full window otherwise;
+* within each group the bluest wavelengths may run on a smaller centred
+  sub-window (``otf_blue``, :func:`_blue_split_plan`), in up to two tiers
+  at ndir >= 9.
+
+Every chunk of a reduced window returns its window guard (the margin of
+the structure function on the window boundaries); after the night, the
+rows of the chunks whose guard is negative are recomputed with the full
+window and the mean PSF is corrected on the device (the surgical redo).
+A pinned ``otf_support`` or ``otf_blue`` is kept as given, guarded and
+redone the same way.
 """
+
+import dataclasses
+from itertools import combinations
 
 import numpy as np
 import torch
@@ -18,37 +35,61 @@ import torch
 from ..config import GalacsiConfig
 from ..fit.moffat_fit import fit_moffat_cube_packed
 from ..otf.convolve import convolve_final
-from ..otf.psf import (dphi_base, dphi_base_split, lambda_crop_size,
+from ..otf.psf import (_centered_idft_np, dphi_base, dphi_base_split,
+                       fitting_dphi_ring_envelopes, lambda_crop_size,
                        psf_cube_from_base)
-from ..psd.model import effective_wind_speed, simulate_psd, \
-    simulate_psd_split
+from ..core.vonkarman import CST_VK_EXACT, fitting_expansion_spec
+from ..psd.model import (effective_wind_speed, seeing_to_r0, simulate_psd,
+                         simulate_psd_split)
 from ..utils.device import resolve_device, torch_dtype
+from ..utils.log import get_logger
+
+logger = get_logger("batch")
 
 
 def _window_guard(base, lbda, cfg: GalacsiConfig):
-    """Margin of the OTF-support window from the windowed structure
-    function ``base`` (B, ndir, rows, cols): ``0.5 * convnm_max^2 *
-    min(D on the window boundary) - ln(1e9)``, nonnegative when every
+    """Per-row margin of the OTF-support window from the windowed
+    structure function ``base`` (B, ndir, rows, cols): ``0.5 * convnm_max^2
+    * min(D on the window boundary) - ln(1e9)``, nonnegative when every
     dropped OTF value is below 1e-9 of the DC.  +inf on the full window,
-    where nothing is dropped."""
+    where nothing is dropped.
+
+    With ``cfg.otf_blue = (nb, S_blue)`` it also checks the sub-window's
+    boundary at ``max(lbda[:nb])``: its top and bottom rows and its left
+    column (columns past ``c+128`` come through the symmetry fold, whose
+    mirror lies inside the computed block)."""
     win = cfg.otf_window
+    g = torch.full((base.shape[0],), float("inf"), dtype=base.dtype,
+                   device=base.device)
+    ln1e9 = float(np.log(1e9))
+
+    def edge_min(top, bottom, left):
+        return torch.minimum(torch.minimum(
+            torch.amin(top, dim=(1, 2)), torch.amin(bottom, dim=(1, 2))),
+            torch.amin(left, dim=(1, 2)))
+
+    if win is not None and cfg.otf_blue is not None:
+        nb, Sb = int(cfg.otf_blue[0]), int(cfg.otf_blue[1])
+        S = win[1]
+        lo, hi = S - Sb, S + Sb
+        d_edge_b = edge_min(base[:, :, lo, lo:], base[:, :, hi - 1, lo:],
+                            base[:, :, lo:hi, lo])
+        convnm2_b = (2.0 * np.pi / torch.max(lbda[:nb])) ** 2
+        g = 0.5 * convnm2_b * d_edge_b - ln1e9
     if win is None or win[1] >= cfg.dim // 2:
-        return torch.full((base.shape[0],), float("inf"), dtype=base.dtype,
-                          device=base.device)
-    edge = torch.minimum(
-        torch.minimum(torch.amin(base[:, :, 0, :], dim=(1, 2)),
-                      torch.amin(base[:, :, -1, :], dim=(1, 2))),
-        torch.amin(base[:, :, :, 0], dim=(1, 2)))
+        return g
+    d_edge = edge_min(base[:, :, 0, :], base[:, :, -1, :], base[:, :, :, 0])
     convnm2 = (2.0 * np.pi / torch.max(lbda)) ** 2
-    return 0.5 * convnm2 * edge - float(np.log(1e9))
+    return torch.minimum(g, 0.5 * convnm2 * d_edge - ln1e9)
 
 
 def reconstruct_rows(seeing, GL, L0, gs_mask, lbda, h, wind_speed,
                      npsflin: int, cfg: GalacsiConfig, npixc=None):
-    """Telemetry rows -> final PSF cubes (B, nl, dimpsf, dimpsf).
-    Counterpart of ``reconstruct_one``
-    (which the JAX package vmaps over rows): all arguments but the static
-    ``h``/``wind_speed``/``npsflin``/``cfg`` are tensors, rows first.
+    """Telemetry rows -> final PSF cubes (B, nl, dimpsf, dimpsf) and the
+    per-row window guard (:func:`_window_guard`).  Counterpart of
+    ``reconstruct_one(..., return_guard=True)`` (which the JAX package
+    vmaps over rows): all arguments but the static ``h``/``wind_speed``/
+    ``npsflin``/``cfg`` are tensors, rows first.
 
     With ``cfg.use_dphi_split`` the full-grid PSD is never materialised
     (valid for ``L0 >= cfg.dphi_split_l0_min``; the planner routes other
@@ -63,28 +104,327 @@ def reconstruct_rows(seeing, GL, L0, gs_mask, lbda, h, wind_speed,
                            cfg)
         base = dphi_base(psd, cfg)
     psf = psf_cube_from_base(base, lbda, cfg, npixc=npixc)
-    return convolve_final(psf, lbda, seeing, GL, L0, cfg)
+    return (convolve_final(psf, lbda, seeing, GL, L0, cfg),
+            _window_guard(base, lbda, cfg))
 
 
 def _fit_chunk(t, n_valid, lbda, npixc, h, wind_speed, npsflin, cfg,
                fit_dtype):
-    """One chunk: reconstruction + packed Moffat fit + pad-masked PSF sum.
-    ``t``: (chunk, 7) telemetry [seeing, GL, L0, gs_mask(4)] on the
-    device; the first ``n_valid`` rows are real."""
-    psf = reconstruct_rows(t[:, 0], t[:, 1], t[:, 2], t[:, 3:7],
+    """One chunk: reconstruction + packed Moffat fit + pad-masked PSF sum
+    + the chunk's window guard (minimum over its rows).  ``t``: (chunk, 7)
+    telemetry [seeing, GL, L0, gs_mask(4)] on the device; the first
+    ``n_valid`` rows are real."""
+    psf, guard = reconstruct_rows(t[:, 0], t[:, 1], t[:, 2], t[:, 3:7],
                                   lbda, h, wind_speed, npsflin, cfg,
                                   npixc=npixc)
     fit = fit_moffat_cube_packed(psf, dtype=fit_dtype)
     psum = torch.sum(psf[:n_valid], dim=0)
-    return fit, psum
+    return fit, psum, torch.min(guard)
 
 
-def _plan_batch(seeing, GL, L0, gs_mask, lbda, h, cfg, chunk):
-    """Host planning: validate, decide the crop sizes in float64, group
-    rows by transform (full window), and build the telemetry table.
+# ---- host planning ------------------------------------------------------
+
+def _split_on_cpu(seeing, GL, L0, gs_mask, h, wind_speed, npsflin, cfg):
+    """(w, delta) of the split PSD for every row, computed on CPU tensors
+    in ``cfg.dtype`` (as the JAX package computes them on its CPU backend)
+    and returned as float64 numpy."""
+    dt = torch_dtype(cfg.dtype)
+    t = [torch.as_tensor(np.asarray(a), dtype=dt)
+         for a in (seeing, GL, L0, gs_mask)]
+    with torch.no_grad():
+        w, delta = simulate_psd_split(*t, h, float(wind_speed), npsflin, cfg)
+    return w.double().numpy(), delta.double().numpy()
+
+
+def default_support_bucket(cfg: GalacsiConfig) -> int:
+    """The one reduced OTF-support bucket of the batch layer: roughly
+    dim/4, 128-aligned (dim=1280 -> 256, dim=2048 -> 512)."""
+    return max(128, (cfg.dim // 4) // 128 * 128)
+
+
+_WINDOWABLE_MEMO = {}
+
+
+def rows_windowable(seeing, GL, L0, gs_mask, lbda_max_nm, cfg, S,
+                    h=(100, 10000), wind_speed=None, npsflin=1,
+                    thresh: float = 1e-12):
+    """Per-row host-side test: is ``otf_support=S`` safe for each row?
+
+    The normalised system OTF is ``exp(-0.5 convnm^2 D) * dl/dl_max`` with
+    ``D = D_fit + D_corr``: ``D_fit = sum_k w_k T_k`` lower-bounded per
+    inf-norm ring by the basis envelopes, ``D_corr`` from the
+    correction-zone block of the split PSD, both sampled along the 8
+    inf-norm-ring extreme rays at 32-px steps from ``S-1`` outward
+    (:func:`_ring_damping`).  A row is windowable when the sampled damping
+    stays below ``thresh`` everywhere beyond the window; the window guard
+    backstops the sampling at run time, three decades above ``thresh``.
+
+    Rows outside the certified split range or with non-finite telemetry
+    are not windowable.  Results are memoised on the telemetry content.
+    """
+    seeing = np.atleast_1d(np.asarray(seeing, np.float64))
+    GL = np.atleast_1d(np.asarray(GL, np.float64))
+    L0 = np.atleast_1d(np.asarray(L0, np.float64))
+    gs_mask = np.atleast_2d(np.asarray(gs_mask, np.float64))
+    out = np.zeros(seeing.shape[0], bool)
+    if cfg.otf_window is None or S >= cfg.dim // 2 or S % 128 != 0:
+        return out
+    if wind_speed is None:
+        wind_speed = effective_wind_speed(h, cfg)
+    h_t = tuple(float(x) for x in np.asarray(h, np.float64).ravel())
+    key = (seeing.tobytes(), GL.tobytes(), L0.tobytes(), gs_mask.tobytes(),
+           float(lbda_max_nm), S, h_t, float(wind_speed), npsflin, cfg,
+           thresh)
+    if key in _WINDOWABLE_MEMO:
+        return _WINDOWABLE_MEMO[key]
+    idx, d_tot, r_of_pt = _ring_damping(seeing, GL, L0, gs_mask, cfg,
+                                        h_t, float(wind_speed), npsflin)
+    if idx.size == 0:
+        return out
+    convnm2 = (2.0 * np.pi / float(lbda_max_nm)) ** 2
+    sel = r_of_pt >= S - 1
+    out[idx] = np.all(0.5 * convnm2 * d_tot[:, :, sel] >= -np.log(thresh),
+                      axis=(1, 2))
+    if len(_WINDOWABLE_MEMO) > 64:
+        _WINDOWABLE_MEMO.clear()
+    _WINDOWABLE_MEMO[key] = out
+    return out
+
+
+_RING_DAMPING_MEMO = {}
+
+
+def _ring_damping(seeing, GL, L0, gs_mask, cfg, h_t, wind_speed, npsflin):
+    """Host-side structure-function samples on the admission rays.
+
+    Returns ``(idx, d_tot, r_of_pt)``: the valid-row indices, their
+    (R, ndir, npts) structure-function values on the 8 inf-norm-ring
+    extreme rays at 32-px radius steps from 127 (the smallest window's
+    boundary) to the grid edge, and each point's radius.  Independent of
+    the wavelength and the window, so one evaluation per telemetry serves
+    every (lambda, S) probe of a planning pass (memoised).
+    """
+    key = (seeing.tobytes(), GL.tobytes(), L0.tobytes(), gs_mask.tobytes(),
+           h_t, wind_speed, npsflin, cfg.with_(otf_support=0, otf_blue=None))
+    if key in _RING_DAMPING_MEMO:
+        return _RING_DAMPING_MEMO[key]
+    ok = (np.isfinite(seeing) & (seeing > 0) & np.isfinite(L0)
+          & (L0 >= cfg.dphi_split_l0_min) & np.isfinite(GL)
+          & np.all(np.isfinite(gs_mask), axis=1))
+    idx = np.nonzero(ok)[0]
+    if idx.size == 0:
+        res = (idx, np.zeros((0, 1, 0)), np.zeros(0, int))
+        _RING_DAMPING_MEMO[key] = res
+        return res
+    see_v, gl_v, l0_v, m_v = seeing[idx], GL[idx], L0[idx], gs_mask[idx]
+    dim = cfg.dim
+    c = dim // 2
+
+    # fit part: per-row ring lower bound of sum_k w_k T_k (exact); r0 in
+    # cfg.dtype, as the split model computes it
+    tmin, tmax = fitting_dphi_ring_envelopes(cfg)        # (K+1, c+1)
+    u0, binoms = fitting_expansion_spec(cfg.dphi_split_l0_min,
+                                        cfg.dphi_split_degree)
+    r0 = seeing_to_r0(torch.as_tensor(see_v, dtype=torch_dtype(cfg.dtype)),
+                      cfg.lambda_ref).double().numpy()
+    nm2 = (cfg.lambda_ref * 1000.0 / (2 * np.pi)) ** 2
+    du = 1.0 / (l0_v * l0_v) - u0
+    w = (nm2 * CST_VK_EXACT * r0[:, None] ** (-5.0 / 3.0) * binoms[None]
+         * du[:, None] ** np.arange(len(binoms))[None])  # (R, K+1)
+    d_fit = (np.where(w[:, :, None] >= 0, w[:, :, None] * tmin[None],
+                      w[:, :, None] * tmax[None])).sum(axis=1)  # (R, c+1)
+
+    # correction part: the zone model, sampled on the 8 ring-extreme rays
+    # at 32-px steps from the smallest window boundary outward
+    _, delta = _split_on_cpu(see_v, gl_v, l0_v, m_v, h_t, wind_speed,
+                             npsflin, cfg)
+    L = cfg.dpup * (dim / cfg.npup)
+    scale = dim * dim / (L * L)
+    bg00 = delta.sum(axis=(-2, -1)) / (L * L)            # (R, ndir)
+    lo = c - cfg.dim_pup
+    s = delta.shape[-1]
+    cb, sb = _centered_idft_np(dim, cols=(lo, s))        # (dim, s) f64
+    radii = np.arange(127, c, 32)
+    if radii[-1] != c - 1:
+        radii = np.append(radii, c - 1)
+    pts = []
+    for r in radii:
+        r = int(r)
+        pts += [(r, 0), (-r, 0), (0, r), (0, -r),
+                (r, r), (-r, -r), (r, -r), (-r, r)]
+    rows_p = np.array([c + dy for dy, _ in pts])
+    cols_q = np.array([c + dx for _, dx in pts])
+    uq, qinv = np.unique(cols_q, return_inverse=True)
+    # contract as GEMMs: (R*ndir*s, s) @ (s, nq)
+    rr, nd = delta.shape[0], delta.shape[1]
+    flat = delta.reshape(-1, s)
+    yc = (flat @ cb[uq].T).reshape(rr, nd, s, -1)        # (R, ndir, s, nq)
+    ys = (flat @ sb[uq].T).reshape(rr, nd, s, -1)
+    re = (np.einsum("ps,rdsp->rdp", cb[rows_p], yc[..., qinv])
+          - np.einsum("ps,rdsp->rdp", sb[rows_p], ys[..., qinv]))
+    d_corr = 2.0 * (bg00[..., None] - re * scale)        # (R, ndir, npts)
+    r_of_pt = np.repeat(radii, 8)
+    d_tot = d_fit[:, r_of_pt][:, None, :] + d_corr       # (R, ndir, npts)
+    if len(_RING_DAMPING_MEMO) > 16:
+        _RING_DAMPING_MEMO.clear()
+    _RING_DAMPING_MEMO[key] = (idx, d_tot, r_of_pt)
+    return idx, d_tot, r_of_pt
+
+
+def estimate_otf_support(seeing, GL, L0, gs_mask, lbda_max_nm, cfg,
+                         h=(100, 10000), wind_speed=None, npsflin=1,
+                         thresh: float = 1e-12) -> int:
+    """Smallest 128-aligned ``otf_support`` safe for every given row
+    (:func:`rows_windowable`), or 0 when only the full window is; for
+    pinning one window explicitly."""
+    cfg_probe = cfg if cfg.otf_support == 0 else cfg.with_(otf_support=0)
+    for S in range(128, cfg.dim // 2, 128):
+        if rows_windowable(seeing, GL, L0, gs_mask, lbda_max_nm,
+                           cfg_probe, S, h, wind_speed, npsflin,
+                           thresh).all():
+            return S
+    return 0
+
+
+def _blue_tiers(cfg, ndir: int = 1) -> int:
+    """Max blue tiers per group from ``cfg.blue_tiers``: 0 is auto (2 at
+    ``ndir >= 9``, else 1); clamped to [1, 4] to bound the ladder
+    enumeration."""
+    raw = int(cfg.blue_tiers)
+    if raw == 0:
+        return 2 if ndir >= 9 else 1
+    return min(4, max(1, raw))
+
+
+def _blue_split_plan(groups, seeing, GL, L0, gs_mask, lb_np, h_t,
+                     wind_speed, npsflin, chunk_c):
+    """Per-group blue-segment window planning (``cfg.otf_blue``).
+
+    The damping exponent scales as ``(2pi/lambda)^2``, so the bluest
+    wavelengths admit much smaller OTF windows than the band maximum that
+    sized each group's bucket.  For every windowed or full group this
+    probes :func:`rows_windowable` at the half-bucket window ``S_blue``
+    for the segment lengths ``nb in {lambda_chunk, 2*lambda_chunk, ...}``
+    and either annotates the whole group with the largest ``nb`` every row
+    admits, or splits it into a ladder of up to :func:`_blue_tiers`
+    blue subgroups (descending ``nb``, each rounded down to the dispatch
+    quantum) plus the remainder, when that saves more exp area by a 4/3
+    factor per extra subgroup and the subgroups cover at least a quarter
+    of the group.  Requires an ascending wavelength grid; groups already
+    annotated or outside the split-certified range are left alone.
+    """
+    nl = lb_np.size
+    if nl < 2 or np.any(np.diff(lb_np) < 0):
+        return groups
+    out = []
+    for gcfg, gidx in groups:
+        win = gcfg.otf_window
+        if (win is None or not gcfg.use_dphi_split
+                or gcfg.otf_blue is not None or gidx.size == 0):
+            out.append((gcfg, gidx))
+            continue
+        S = win[1]
+        Sb = ((S // 2) // 128) * 128
+        kl = max(1, int(gcfg.lambda_chunk))
+        if Sb < 128 or Sb >= S or nl <= kl:
+            out.append((gcfg, gidx))
+            continue
+        probe = gcfg if gcfg.otf_support == 0 else gcfg.with_(otf_support=0)
+        n_rows = gidx.size
+        quantum = (chunk_c if gcfg.otf_support == 0
+                   else max(1, chunk_c // 4))
+        # admission counts over the nb menu (monotone decreasing in nb;
+        # the host model is memoised, one evaluation per row)
+        cnts, adms = {}, {}
+        for nb in range(kl, nl, kl):
+            adm = rows_windowable(seeing[gidx], GL[gidx], L0[gidx],
+                                  gs_mask[gidx], float(lb_np[nb - 1]),
+                                  probe, Sb, h=h_t, wind_speed=wind_speed,
+                                  npsflin=npsflin)
+            cnt = int(adm.sum())
+            if cnt == 0:
+                break
+            cnts[nb], adms[nb] = cnt, adm
+        if not cnts:
+            out.append((gcfg, gidx))
+            continue
+        full_nb = max((nb for nb, c in cnts.items() if c == n_rows),
+                      default=0)
+        tiers = _blue_tiers(gcfg, npsflin * npsflin)
+        nbs_asc = sorted(cnts)
+        # bound C(menu, tiers): thin a long menu to <= 16 evenly spaced
+        # entries, keeping full_nb and the largest nb
+        if len(nbs_asc) > 16:
+            idx = np.unique(np.round(
+                np.linspace(0, len(nbs_asc) - 1, 16)).astype(int))
+            keep_set = {nbs_asc[i] for i in idx}
+            if full_nb:
+                keep_set.add(full_nb)
+            nbs_asc = sorted(keep_set)
+        whole = ((float(full_nb * n_rows), full_nb * n_rows,
+                  [(full_nb, n_rows)], 0) if full_nb else None)
+        best = whole   # (value, score, ladder=[(nb, keep)], extra)
+        for t in range(1, max(1, tiers) + 1):
+            # ascending enumeration keeps the smallest-nb tie-break; each
+            # ladder runs bluest (largest nb) tier first
+            for asc in combinations(nbs_asc, t):
+                taken, keeps = 0, []
+                for nb in asc[::-1]:
+                    avail = cnts[nb] - taken
+                    # a tier that admits the whole group absorbs every
+                    # remaining row (no plain remainder, no rounding)
+                    keep = (n_rows - taken if cnts[nb] == n_rows
+                            else (avail // quantum) * quantum)
+                    if keep <= 0:
+                        break
+                    keeps.append((nb, keep))
+                    taken += keep
+                if len(keeps) < t:
+                    continue    # a shorter ladder, already enumerated
+                extra = len(keeps) - (1 if taken == n_rows else 0)
+                score = sum(nb * k for nb, k in keeps)
+                value = score * 0.75 ** extra
+                if best is None or value > best[0]:
+                    best = (value, score, keeps, extra)
+        # the minimum-size guard applies to the selected candidate: a
+        # failing argmax falls back to the whole-group annotation or none
+        if best is not None and \
+                sum(k for _, k in best[2]) < max(1, n_rows // 4):
+            best = whole
+        if best is None:
+            out.append((gcfg, gidx))
+            continue
+        keeps = best[2]
+        if len(keeps) == 1 and keeps[0][1] == n_rows:
+            out.append((gcfg.with_(otf_blue=(keeps[0][0], Sb)), gidx))
+            continue
+        taken_rows = np.zeros(n_rows, bool)
+        for nb, keep in keeps:
+            sel = np.nonzero(adms[nb] & ~taken_rows)[0][:keep]
+            tier_rows = np.zeros(n_rows, bool)
+            tier_rows[sel] = True
+            taken_rows |= tier_rows
+            out.append((gcfg.with_(otf_blue=(nb, Sb)), gidx[tier_rows]))
+        if not taken_rows.all():
+            out.append((gcfg, gidx[~taken_rows]))
+    return out
+
+
+def clamped_chunk(chunk: int, B: int) -> int:
+    """The chunk size the batch layer dispatches: clamped to the batch."""
+    return max(min(int(chunk), B), 1)
+
+
+def _plan_batch(seeing, GL, L0, gs_mask, lbda, h, npsflin, cfg, chunk,
+                force_full=False):
+    """Host planning: validate, decide the crop sizes in float64, bucket
+    rows by OTF support and blue sub-window, and build the telemetry
+    table.
 
     Returns ``(cfg, groups, chunk, table, lbda, h, wind_speed, npixc)``
-    with ``groups`` a list of ``(group_cfg, row_indices)``.
+    with ``groups`` a list of ``(group_cfg, row_indices)``.  A pinned
+    ``otf_support``/``otf_blue`` is kept; ``force_full`` (the guard redo)
+    runs every row on the full window at the caller's chunk.
     """
     cfg = cfg or GalacsiConfig()
     wind_speed = effective_wind_speed(h, cfg)
@@ -111,22 +451,190 @@ def _plan_batch(seeing, GL, L0, gs_mask, lbda, h, cfg, chunk):
             f"telemetry shapes disagree: seeing {seeing.shape}, GL "
             f"{GL.shape}, L0 {L0.shape}, gs_mask {gs_mask.shape}")
 
-    # the full window for every group (the planner's force_full branch)
-    g0 = cfg.with_(otf_support=0, otf_blue=None)
     split_bad = np.zeros(B, bool)
     if cfg.use_dphi_split:
         split_bad = ~(np.isfinite(L0) & (L0 >= cfg.dphi_split_l0_min))
-    groups = []
-    if (~split_bad).any():
-        groups.append((g0, np.nonzero(~split_bad)[0]))
-    if split_bad.any():
-        groups.append((g0.with_(use_dphi_split=False),
-                       np.nonzero(split_bad)[0]))
+    if force_full:
+        # the guard redo: the full window, any blue split cleared (the
+        # guard may have tripped on the sub-window boundary)
+        g0 = cfg.with_(otf_support=0, otf_blue=None)
+        groups = []
+        if (~split_bad).any():
+            groups.append((g0, np.nonzero(~split_bad)[0]))
+        if split_bad.any():
+            groups.append((g0.with_(use_dphi_split=False),
+                           np.nonzero(split_bad)[0]))
+    else:
+        groups = []
+        if split_bad.any():
+            groups.append((cfg.with_(use_dphi_split=False),
+                           np.nonzero(split_bad)[0]))
+        rest = np.nonzero(~split_bad)[0]
+        if rest.size:
+            # rows whose OTF provably fits the reduced window run it, the
+            # rest the full one; a pinned window (otf_support or otf_blue)
+            # is kept as given
+            sub = [(cfg, rest)]
+            if (cfg.otf_support == 0 and cfg.otf_window is not None
+                    and cfg.otf_blue is None):
+                bq = default_support_bucket(cfg)
+                if bq < cfg.dim // 2:
+                    okw = rows_windowable(
+                        seeing[rest], GL[rest], L0[rest], gs_mask[rest],
+                        float(lb_np.max()), cfg, bq, h=h_t,
+                        wind_speed=wind_speed, npsflin=npsflin)
+                    cfg_w = cfg.with_(otf_support=bq)
+                    if okw.all():
+                        sub = [(cfg_w, rest)]
+                    elif okw.any():
+                        sub = [(cfg_w, rest[okw]), (cfg, rest[~okw])]
+            groups += sub
+        if cfg.otf_support == 0:
+            groups = _blue_split_plan(groups, seeing, GL, L0, gs_mask,
+                                      lb_np, h_t, wind_speed, npsflin,
+                                      clamped_chunk(chunk, B))
+    # the redo keeps the caller's chunk (the original night's), padding
+    # the redone rows up to it
+    chunk = clamped_chunk(chunk, chunk if force_full else B)
     table = np.concatenate(
         [seeing[:, None], GL[:, None], L0[:, None], gs_mask], axis=1)
-    return (cfg, groups, max(1, min(int(chunk), B)), table, lb_np, h_t,
-            wind_speed, npixc)
+    return cfg, groups, chunk, table, lb_np, h_t, wind_speed, npixc
 
+
+@dataclasses.dataclass(frozen=True)
+class GroupPlan:
+    """One group's dispatch schedule (host data only).  ``rows`` are
+    input-row indices in dispatch order; the group's padded telemetry is
+    ``table[rows]`` extended by ``n_pad`` repeats of its last row.
+    ``sizes[i]`` is the i-th chunk's size, ``nvals[i]`` how many of its
+    rows are real, ``offs[i]`` its offset into the padded group table."""
+    cfg: GalacsiConfig
+    rows: np.ndarray
+    sizes: tuple
+    nvals: tuple
+    offs: tuple
+
+    @property
+    def n_pad(self) -> int:
+        return int(sum(self.sizes)) - int(self.rows.shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchPlan:
+    """The complete plan of a batch run, a pure function of (telemetry,
+    wavelength grid, npsflin, cfg, chunk), produced by :func:`plan_batch`
+    and executed by :func:`process_batch`/:func:`reconstruct_batch`."""
+    cfg: GalacsiConfig
+    chunk: int
+    npsflin: int
+    use_tail: bool
+    lbda: np.ndarray
+    npixc: np.ndarray
+    h: tuple
+    wind_speed: float
+    table: np.ndarray             # (B, 7) telemetry
+    groups: tuple                 # of GroupPlan, dispatch order
+
+    def summary(self) -> dict:
+        """JSON-serialisable summary, the same as the JAX package's: group
+        configs as deltas against the base config."""
+        def _j(v):
+            if isinstance(v, np.integer):
+                return int(v)
+            if isinstance(v, np.floating):
+                return float(v)
+            if isinstance(v, (tuple, list)):
+                return [_j(x) for x in v]
+            return v
+
+        groups = []
+        for g in self.groups:
+            delta = {f.name: _j(getattr(g.cfg, f.name))
+                     for f in dataclasses.fields(GalacsiConfig)
+                     if getattr(self.cfg, f.name) != getattr(g.cfg, f.name)}
+            groups.append({
+                "cfg_delta": delta,
+                "rows": [int(i) for i in g.rows],
+                "sizes": [int(s) for s in g.sizes],
+                "nvals": [int(n) for n in g.nvals],
+                "offs": [int(o) for o in g.offs],
+            })
+        return {
+            "chunk": int(self.chunk),
+            "npsflin": int(self.npsflin),
+            "use_tail": bool(self.use_tail),
+            "nl": int(self.lbda.size),
+            "npixc": [int(n) for n in self.npixc],
+            "n_rows": int(self.table.shape[0]),
+            "groups": groups,
+        }
+
+
+def _tail_size(chunk_n: int, rem: int) -> int:
+    """Smallest size from the fixed tail menu {c/4, c/2, 3c/4} covering
+    ``rem`` leftover rows (else the full chunk)."""
+    for num, den in ((1, 4), (1, 2), (3, 4)):
+        t = max(1, chunk_n * num // den)
+        if t >= rem:
+            return t
+    return chunk_n
+
+
+_PLAN_MEMO = {}
+_PLAN_MEMO_MAX = 8
+
+
+def plan_batch(seeing, GL, L0, gs_mask, lbda, h=(100, 10000),
+               npsflin: int = 1, cfg: GalacsiConfig = None,
+               chunk: int = 8, force_full=False,
+               use_tail: bool = None) -> BatchPlan:
+    """The :class:`BatchPlan` of a batch run: host-only planning
+    (:func:`_plan_batch`), then each group's chunk schedule.  The last
+    partial chunk of a reduced-window group runs at the smallest covering
+    size of the tail menu; full-window groups always pad to the chunk.
+    Memoised on the inputs; the plan's arrays are read-only."""
+    seeing = np.atleast_1d(np.asarray(seeing, np.float64))
+    GL = np.atleast_1d(np.asarray(GL, np.float64))
+    L0 = np.atleast_1d(np.asarray(L0, np.float64))
+    gs_mask = np.atleast_2d(np.asarray(gs_mask, np.float64))
+    if use_tail is None:
+        use_tail = not force_full
+    memo_key = (seeing.tobytes(), GL.tobytes(), L0.tobytes(),
+                gs_mask.tobytes(), np.asarray(lbda, np.float64).tobytes(),
+                tuple(np.asarray(h, np.float64).ravel()), npsflin, cfg,
+                int(chunk), bool(force_full), bool(use_tail))
+    hit = _PLAN_MEMO.get(memo_key)
+    if hit is not None:
+        return hit
+    (cfg_r, groups, chunk_n, table, lb_np, h_t, wind_speed,
+     npixc) = _plan_batch(seeing, GL, L0, gs_mask, lbda, h, npsflin, cfg,
+                          chunk, force_full)
+    gplans = []
+    for gcfg, gidx in groups:
+        n_main, rem = divmod(gidx.shape[0], chunk_n)
+        if rem and use_tail and gcfg.otf_support:
+            tail = _tail_size(chunk_n, rem)
+        else:
+            tail = chunk_n if rem else 0
+        sizes = tuple([chunk_n] * n_main + ([tail] if rem else []))
+        nvals = tuple([chunk_n] * n_main + ([rem] if rem else []))
+        offs = tuple(int(o) for o in
+                     np.concatenate([[0], np.cumsum(sizes)[:-1]]))
+        gplans.append(GroupPlan(gcfg, gidx, sizes, nvals, offs))
+    # frozen: the memo shares one plan across calls, and callbacks get
+    # views of its rows
+    lb_np = np.array(lb_np)
+    for arr in (table, npixc, lb_np, *(g.rows for g in gplans)):
+        arr.setflags(write=False)
+    plan = BatchPlan(cfg_r, chunk_n, npsflin, bool(use_tail), lb_np, npixc,
+                     h_t, float(wind_speed), table, tuple(gplans))
+    if len(_PLAN_MEMO) >= _PLAN_MEMO_MAX:
+        _PLAN_MEMO.pop(next(iter(_PLAN_MEMO)))
+    _PLAN_MEMO[memo_key] = plan
+    return plan
+
+
+# ---- execution ----------------------------------------------------------
 
 def _check_device_dtype(cfg: GalacsiConfig, dev: torch.device):
     if (dev.type == "cuda" and cfg.dtype != "float32"
@@ -139,76 +647,195 @@ def _check_device_dtype(cfg: GalacsiConfig, dev: torch.device):
             "device='cpu'")
 
 
-def _chunks(seeing, GL, L0, gs_mask, lbda, h, npsflin, cfg, chunk, dev):
-    """Plan the batch and place it on ``dev``.  Returns ``(static, it)``:
-    ``static = (lbda, npixc, h, wind_speed)`` (the first two as device
-    tensors) and an iterator of ``(group_cfg, rows, t)`` per chunk, ``t``
-    the (chunk, 7) device telemetry padded with repeats of the group's
-    last row, ``rows`` the input indices of its real rows."""
-    (cfg, groups, chunk, table, lb_np, h_t, wind_speed,
-     npixc) = _plan_batch(seeing, GL, L0, gs_mask, lbda, h, cfg, chunk)
-    _check_device_dtype(cfg, dev)
-    dtype = torch_dtype(cfg.dtype)
-    static = (torch.as_tensor(lb_np, dtype=dtype, device=dev),
-              torch.as_tensor(npixc, dtype=torch.int64, device=dev),
-              h_t, wind_speed)
+def _chunks(plan: BatchPlan, dev):
+    """Place the plan on ``dev`` and iterate its chunks.  Returns
+    ``(static, it)``: ``static = (lbda, npixc)`` as device tensors and an
+    iterator of ``(group_cfg, rows, t)`` per chunk, ``t`` the
+    (size, 7) device telemetry (padded with repeats of the group's last
+    row), ``rows`` the input indices of its real rows.  The whole night's
+    padded telemetry goes to the device in one copy."""
+    _check_device_dtype(plan.cfg, dev)
+    dtype = torch_dtype(plan.cfg.dtype)
+    # (copies: the plan's arrays are read-only)
+    static = (torch.tensor(np.array(plan.lbda), dtype=dtype, device=dev),
+              torch.tensor(np.array(plan.npixc), dtype=torch.int64,
+                           device=dev))
+    tabs = [np.concatenate([plan.table[g.rows],
+                            np.repeat(plan.table[g.rows[-1:]], g.n_pad,
+                                      axis=0)]) for g in plan.groups]
+    night = torch.as_tensor(np.concatenate(tabs), dtype=dtype, device=dev)
 
     def it():
-        for gcfg, gidx in groups:
-            gt = table[gidx]
-            n_pad = (-gt.shape[0]) % chunk
-            if n_pad:
-                gt = np.concatenate([gt, np.repeat(gt[-1:], n_pad, axis=0)])
-            table_d = torch.as_tensor(gt, dtype=dtype, device=dev)
-            for lo in range(0, gidx.shape[0], chunk):
-                yield gcfg, gidx[lo:lo + chunk], table_d[lo:lo + chunk]
+        base = 0
+        for g in plan.groups:
+            for size, nval, off in zip(g.sizes, g.nvals, g.offs):
+                yield (g.cfg, g.rows[off:off + nval],
+                       night[base + off:base + off + size])
+            base += sum(g.sizes)
     return static, it()
+
+
+def _pull(*tensors):
+    """Several device tensors to host numpy in ONE copy (their raveled
+    concatenation in a common dtype), original shapes and dtypes
+    restored."""
+    dt = tensors[0].dtype
+    for t in tensors[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    flat = torch.cat([t.reshape(-1).to(dt) for t in tensors]).cpu()
+    out, off = [], 0
+    for t in tensors:
+        out.append(flat[off:off + t.numel()].reshape(tuple(t.shape))
+                   .to(t.dtype).numpy())
+        off += t.numel()
+    return out
 
 
 def reconstruct_batch(seeing, GL, L0, gs_mask, lbda, h=(100, 10000),
                       npsflin: int = 1, cfg: GalacsiConfig = None,
-                      chunk: int = 8, device="cuda"):
+                      chunk: int = 8, device="cuda", _force_full=False):
     """Reconstruct PSF cubes for a batch of work items: (B,)-shaped
-    telemetry (``gs_mask`` (B, 4)) -> (B, nl, dimpsf, dimpsf) numpy."""
+    telemetry (``gs_mask`` (B, 4)) -> (B, nl, dimpsf, dimpsf) numpy.  The
+    rows of chunks whose window guard trips are recomputed with the full
+    window."""
     dev = resolve_device(device)
-    (lbda_d, npixc_d, h_t, wind_speed), chunks = _chunks(
-        seeing, GL, L0, gs_mask, lbda, h, npsflin, cfg, chunk, dev)
-    idxs, cubes = [], []
+    seeing = np.atleast_1d(np.asarray(seeing, np.float64))
+    GL = np.atleast_1d(np.asarray(GL, np.float64))
+    L0 = np.atleast_1d(np.asarray(L0, np.float64))
+    gs_mask = np.atleast_2d(np.asarray(gs_mask, np.float64))
+    plan = plan_batch(seeing, GL, L0, gs_mask, lbda, h, npsflin, cfg, chunk,
+                      force_full=_force_full)
+    (lbda_d, npixc_d), chunks = _chunks(plan, dev)
+    idxs, cubes, guards = [], [], []
     for gcfg, rows, t in chunks:
-        psf = reconstruct_rows(t[:, 0], t[:, 1], t[:, 2], t[:, 3:7],
-                                      lbda_d, h_t, wind_speed, npsflin, gcfg,
-                                      npixc=npixc_d)
+        psf, guard = reconstruct_rows(
+            t[:, 0], t[:, 1], t[:, 2], t[:, 3:7], lbda_d, plan.h,
+            plan.wind_speed, npsflin, gcfg, npixc=npixc_d)
         idxs.append(rows)
         cubes.append(psf[:len(rows)])
-    out = torch.cat(cubes).cpu().numpy()
-    return out[np.argsort(np.concatenate(idxs))]
+        guards.append(torch.min(guard))
+    cube_np, guard_np = _pull(torch.cat(cubes), torch.stack(guards))
+    out = np.empty_like(cube_np)
+    out[np.concatenate(idxs)] = cube_np
+    for i in np.nonzero(guard_np < 0.0)[0]:
+        idx = idxs[i]
+        logger.warning(
+            "OTF-support window guard tripped (margin %.2f); recomputing "
+            "%d rows with the full window", float(guard_np[i]), len(idx))
+        out[idx] = reconstruct_batch(
+            seeing[idx], GL[idx], L0[idx], gs_mask[idx], lbda, h, npsflin,
+            cfg, plan.chunk, device, _force_full=True)
+    return out
 
 
 def process_batch(seeing, GL, L0, gs_mask, lbda, h=(100, 10000),
                   npsflin: int = 1, cfg: GalacsiConfig = None,
-                  chunk: int = 8, fit_dtype: str = None, device="cuda"):
+                  chunk: int = 8, fit_dtype: str = None, device="cuda",
+                  on_chunk=None, on_redo_start=None, on_final=None,
+                  _force_full=False, _return_parts=False):
     """Full batch: reconstruct, Moffat-fit and average on the device.
 
     Returns numpy ``(fit_packed, psf_mean, fit_mean_packed)``: per-row
     per-wavelength packed Moffat parameters (B, nl, N_PACKED) in input
     order (see ``fit.moffat_fit.PACKED_FIELDS``), the (nl, dimpsf, dimpsf)
     mean PSF over the rows (padding rows masked out) and its packed fit.
-    The PSF cubes never leave the device.
+    The PSF cubes never leave the device; the fits, the mean and the
+    reduced-window chunks' guards come back in one copy.
+
+    When a chunk's window guard trips, only that chunk's rows are
+    recomputed with the full window at the original chunk, and the mean
+    is corrected on the device.
+
+    ``on_chunk(row_indices, packed_numpy)`` is called after each chunk
+    (rows are bucketed, so chunks do not arrive in input order; after a
+    guard trip it is called again for the redone rows with the corrected
+    values: treat the indices as keys).  ``on_redo_start(row_indices)`` is
+    called once, before the redo, with the rows about to be recomputed.
+    ``on_final(row_indices)`` is called when rows' values can no longer
+    change: right after delivery for chunks of guard-free groups (full
+    window, no blue sub-window), once for the untripped reduced-window
+    chunks after the guards are read, and once for the redone rows after
+    their corrected delivery.
+
+    ``_return_parts`` (the redo, whose full window cannot trip): return
+    the device tensors ``(fit in input order, psf_sum)`` without host
+    copies.
     """
     dev = resolve_device(device)
     cfg = cfg or GalacsiConfig()
     fit_dtype = fit_dtype or cfg.fit_dtype
-    (lbda_d, npixc_d, h_t, wind_speed), chunks = _chunks(
-        seeing, GL, L0, gs_mask, lbda, h, npsflin, cfg, chunk, dev)
+    seeing = np.atleast_1d(np.asarray(seeing, np.float64))
+    GL = np.atleast_1d(np.asarray(GL, np.float64))
+    L0 = np.atleast_1d(np.asarray(L0, np.float64))
+    gs_mask = np.atleast_2d(np.asarray(gs_mask, np.float64))
+    plan = plan_batch(seeing, GL, L0, gs_mask, lbda, h, npsflin, cfg, chunk,
+                      force_full=_force_full)
+    (lbda_d, npixc_d), chunks = _chunks(plan, dev)
     idxs, fits, psums = [], [], []
+    guards, guarded = [], []      # guards of the reduced-window chunks
+    count = 0
     for gcfg, rows, t in chunks:
-        fit, psum = _fit_chunk(t, len(rows), lbda_d, npixc_d, h_t,
-                               wind_speed, npsflin, gcfg, fit_dtype)
+        n = len(rows)
+        fit, psum, guard = _fit_chunk(t, n, lbda_d, npixc_d, plan.h,
+                                      plan.wind_speed, npsflin, gcfg,
+                                      fit_dtype)
         idxs.append(rows)
-        fits.append(fit[:len(rows)])
+        fits.append(fit[:n])
         psums.append(psum)
+        # no reduced window and no blue sub-window: the guard is +inf by
+        # construction, and the rows are final at delivery
+        free = not gcfg.otf_support and gcfg.otf_blue is None
+        if not free:
+            guards.append(guard)
+            guarded.append(len(idxs) - 1)
+        if on_chunk is not None:
+            on_chunk(rows, fits[-1].cpu().numpy())
+        if on_final is not None and free:
+            on_final(rows)
+        count += n
+    total_psum = torch.sum(torch.stack(psums), dim=0)
     order = np.concatenate(idxs)
-    psf_mean = torch.sum(torch.stack(psums), dim=0) / order.size
+    inv = np.argsort(order)
+    if _return_parts:
+        return torch.cat(fits)[torch.as_tensor(inv, device=dev)], total_psum
+    psf_mean = total_psum / count
     fit_mean = fit_moffat_cube_packed(psf_mean, dtype=fit_dtype)
-    fit_np = torch.cat(fits).cpu().numpy()[np.argsort(order)]
-    return fit_np, psf_mean.cpu().numpy(), fit_mean.cpu().numpy()
+    pulled = _pull(torch.cat(fits), psf_mean, fit_mean, *guards)
+    fit_np, psf_mean_np, fit_mean_np = pulled[:3]
+    fit_np = fit_np[inv]
+    guard_np = np.array([float(g) for g in pulled[3:]])
+    tripped = [guarded[i] for i in np.nonzero(guard_np < 0.0)[0]]
+    if on_final is not None:
+        clear = [idxs[i] for i in guarded if i not in tripped]
+        if clear:
+            on_final(np.concatenate(clear))
+    if not tripped:
+        return fit_np, psf_mean_np, fit_mean_np
+
+    # surgical redo: only the tripped chunks' rows, on the full window at
+    # the original chunk; the mean swaps their contribution on the device
+    redo_idx = np.concatenate([idxs[i] for i in tripped])
+    logger.warning(
+        "OTF-support window guard tripped for %d of %d chunks (worst "
+        "margin %.2f); recomputing %d of %d rows with the full window",
+        len(tripped), len(idxs), float(guard_np.min()), redo_idx.size,
+        count)
+    if on_redo_start is not None:
+        on_redo_start(redo_idx)
+    on_chunk_redo = None
+    if on_chunk is not None:
+        def on_chunk_redo(local_idx, packed_np):
+            on_chunk(redo_idx[local_idx], packed_np)
+    fit_redo, psum_redo = process_batch(
+        seeing[redo_idx], GL[redo_idx], L0[redo_idx], gs_mask[redo_idx],
+        lbda, h, npsflin, cfg, plan.chunk, fit_dtype, device,
+        on_chunk=on_chunk_redo, _force_full=True, _return_parts=True)
+    old_sub = torch.sum(torch.stack([psums[i] for i in tripped]), dim=0)
+    psf_mean = (total_psum - old_sub + psum_redo) / count
+    fit_mean = fit_moffat_cube_packed(psf_mean, dtype=fit_dtype)
+    fit_redo_np, psf_mean_np, fit_mean_np = _pull(fit_redo, psf_mean,
+                                                  fit_mean)
+    fit_np[redo_idx] = fit_redo_np
+    if on_final is not None:
+        on_final(redo_idx)
+    return fit_np, psf_mean_np, fit_mean_np

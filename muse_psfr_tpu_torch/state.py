@@ -12,7 +12,8 @@ import dataclasses
 
 import numpy as np
 
-from .config import NOT_YET_PORTED, RENAMED, GalacsiConfig
+from .config import (NOT_YET_PORTED, RENAMED, TPU_LAYOUT_ONLY,
+                     GalacsiConfig)
 from .core import coeff_l0
 from .otf import psf as _psf
 from .psd import model as _psd
@@ -23,12 +24,13 @@ def config_from_reference(fields: dict) -> GalacsiConfig:
     """The port's config from a JAX ``GalacsiConfig``'s fields: renamed
     knobs carried over (``use_pallas`` -> ``use_fused_zoom``,
     ``use_pallas_conv`` -> ``use_fused_conv``), the fields in
-    :data:`NOT_YET_PORTED` dropped.  Unknown fields raise."""
+    :data:`TPU_LAYOUT_ONLY` and :data:`NOT_YET_PORTED` dropped.  Unknown
+    fields raise."""
     names = {f.name for f in dataclasses.fields(GalacsiConfig)}
     kw = {}
     for key, value in fields.items():
         key = RENAMED.get(key, key)
-        if key in NOT_YET_PORTED:
+        if key in NOT_YET_PORTED or key in TPU_LAYOUT_ONLY:
             continue
         if key not in names:
             raise ValueError(f"unknown config field {key!r}")

@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on
-the card (K1 <= 1e-5, K2 <= 1e-6 relative max-abs), and the batch night
-through both kernels.  Marked ``cuda``: skipped where no CUDA card is
-present (CUDA kernels have no CPU mode).  On a GPU machine:
+the card (K1 and K3 <= 1e-5, K2 <= 1e-6 relative max-abs; K3 against K1
+<= 2e-6, and bit-identical on a rerun), K1 on a strided structure
+function, and the batch night through the kernels.  Marked ``cuda``:
+skipped where no CUDA card is present (CUDA kernels have no CPU mode).
+On a GPU machine:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 
@@ -52,6 +54,50 @@ def test_zoom_kernel_matches_plain(dev, ndir, n, ncols, m2, exp2):
                                                        exp2=exp2)) <= 1e-5
 
 
+def _zoom_args(dev, B, ndir, n, ncols, m2, nl=3, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    dphi = torch.rand((B, ndir, n, ncols), generator=g) * 40
+    dl = torch.rand((n, ncols), generator=g)
+    a2 = torch.randn((nl, m2, n), generator=g) / n
+    alpha = -0.1 - 0.2 * torch.rand((nl,), generator=g)
+    w = 0.5 + torch.rand((B, nl, ndir), generator=g)
+    return [x.to(dev) for x in (dphi, dl, a2, alpha, w)]
+
+
+@pytest.mark.parametrize("ndir", [1, 9])
+@pytest.mark.parametrize("R", [2, 4, 8])
+def test_rowsplit_kernel_matches_plain(dev, ndir, R):
+    """K3 with ncols = 200 (not a multiple of the 64-column tile) and two
+    160-row output blocks.  Against K1 the bound is 2e-6: both are float32
+    sums of the same 512 signed terms in two association orders, and on
+    these random, strongly cancelling inputs each lies up to ~6e-7 of
+    max|U| from the float64 value (measured with the plain versions)."""
+    args = _zoom_args(dev, 2, ndir, 512, 200, 170)
+    before = (zoom_dft.LAUNCHES, zoom_dft.ROWSPLIT_LAUNCHES)
+    got = zoom_dft.fused_exp_zoom(*args, exp2=True, row_splits=R)
+    assert (zoom_dft.LAUNCHES, zoom_dft.ROWSPLIT_LAUNCHES) == \
+        (before[0], before[1] + 1)
+    assert _rel(got, zoom_dft.fused_exp_zoom_reference(
+        *args, exp2=True, row_splits=R)) <= 1e-5
+    assert _rel(got, zoom_dft.fused_exp_zoom(*args, exp2=True)) <= 2e-6
+    assert torch.equal(got, zoom_dft.fused_exp_zoom(*args, exp2=True,
+                                                    row_splits=R))
+
+
+def test_zoom_kernel_takes_a_strided_view(dev):
+    """The blue sub-window is a view of the structure function: the kernel
+    reads it through its strides, without a copy."""
+    dphi, dl, a2, alpha, w = _zoom_args(dev, 2, 3, 256, 384, 32)
+    view = dphi[..., 64:192, 64:]                       # (2, 3, 128, 320)
+    assert not view.is_contiguous()
+    args = (view, dl[64:192, 64:].contiguous(), a2[..., 64:192].contiguous(),
+            alpha, w)
+    got = zoom_dft.fused_exp_zoom(*args, row_splits=2)
+    want = zoom_dft.fused_exp_zoom_reference(view.contiguous(), *args[1:],
+                                             row_splits=2)
+    assert _rel(got, want) <= 1e-5
+
+
 @pytest.mark.parametrize("B,nl,n", [(2, 3, 8), (3, 35, 40)])
 def test_conv_kernel_matches_plain(dev, B, nl, n):
     g = torch.Generator(device="cpu").manual_seed(1)
@@ -74,7 +120,8 @@ def test_night_runs_both_kernels(dev):
             np.ones((3, 4)), [750.0, 900.0])
     fit, psf_mean, _ = process_batch(*args, cfg=cfg, chunk=2, device="cuda")
     counts = _build.launch_counts()
-    assert counts["zoom_dft"] > 0 and counts["conv_dft"] > 0
+    # 2 rows x 2 wavelengths of TINY fill 16 blocks: the zoom runs as K3
+    assert counts["zoom_dft_rowsplit"] > 0 and counts["conv_dft"] > 0
     ref = process_batch(*args, cfg=cfg, chunk=2, device="cpu")
     assert np.abs(psf_mean - ref[1]).max() <= 1e-5 * np.abs(ref[1]).max()
     assert np.all(fit[..., -1] == 1.0)

@@ -51,8 +51,9 @@ def test_cpu_tensors_take_the_plain_path_without_launching():
         device="cpu")
     assert np.all(np.isfinite(fit)) and np.all(np.isfinite(psf_mean))
     assert _build.launch_counts() == before
-    assert set(before) == {"zoom_dft", "conv_dft"}
+    assert set(before) == {"zoom_dft", "zoom_dft_rowsplit", "conv_dft"}
     assert before["zoom_dft"] == zoom_dft.LAUNCHES
+    assert before["zoom_dft_rowsplit"] == zoom_dft.ROWSPLIT_LAUNCHES
     assert before["conv_dft"] == conv_dft.LAUNCHES
 
 
@@ -78,6 +79,9 @@ def test_float64_with_fused_kernels_on_cuda_is_refused():
 
 def test_reset_launch_counts():
     zoom_dft.LAUNCHES, conv_dft.LAUNCHES = 3, 4
-    assert _build.launch_counts() == {"zoom_dft": 3, "conv_dft": 4}
+    zoom_dft.ROWSPLIT_LAUNCHES = 5
+    assert _build.launch_counts() == {"zoom_dft": 3, "zoom_dft_rowsplit": 5,
+                                      "conv_dft": 4}
     _build.reset_launch_counts()
-    assert _build.launch_counts() == {"zoom_dft": 0, "conv_dft": 0}
+    assert _build.launch_counts() == {"zoom_dft": 0, "zoom_dft_rowsplit": 0,
+                                      "conv_dft": 0}

@@ -57,6 +57,15 @@ def test_host_tables_equal():
                                                             jnp.float64)))
 
 
+def test_ring_envelopes_equal():
+    tc, jc = _cfgs(dim=512)
+    tmin, tmax = tpsf.fitting_dphi_ring_envelopes(tc)
+    jmin, jmax = jpsf.fitting_dphi_ring_envelopes(jc)
+    assert tmin.shape == (tc.dphi_split_degree + 1, 257)
+    assert np.array_equal(tmin, jmin) and np.array_equal(tmax, jmax)
+    assert np.all(tmin <= tmax)
+
+
 @pytest.mark.parametrize("kw", [{}, {"use_sym_fold": False},
                                 {"otf_support": 128, "dim": 512,
                                  "dim_pup": 16}])
@@ -132,11 +141,52 @@ def test_float32_fused_chunk_close_to_float64():
     assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
 
 
+BLUE = dict(dim=512, dim_pup=16, dimpsf=12, lambda_chunk=2)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_blue_split_matches_jax(fused):
+    """otf_blue: the bluest nb wavelengths on the centred S_blue
+    sub-window (a strided view of the structure function).  Port ==
+    JAX to 1e-5 relative in float32; the red segment is bit-identical to
+    the unsplit cube and the blue planes differ from it only by the
+    certified truncation (tests/test_otf_support.py)."""
+    tc = TConfig(use_fused_zoom=fused, **BLUE)
+    jc = JConfig(**BLUE)
+    lb = np.linspace(600.0, 900.0, 6)
+    w, delta = tpsd.simulate_psd_split(
+        *(torch.as_tensor(a, dtype=torch.float32)
+          for a in (SEEING, GL, L0, MASK)), H, 12.0, 3, tc)
+    base = tpsf.dphi_base_split(w, delta, tc)            # (2, 9, 512, 384)
+    ref = tpsf.psf_cube_from_base(base, lb, tc).numpy()
+    for nb in (1, 3):
+        got = tpsf.psf_cube_from_base(base, lb,
+                                      tc.with_(otf_blue=(nb, 128))).numpy()
+        assert np.array_equal(got[:, nb:], ref[:, nb:])
+        assert np.abs(got[:, :nb] - ref[:, :nb]).max() < 5e-7
+        for b in range(2):
+            want = np.asarray(jpsf.psf_cube_from_base(
+                jnp.asarray(base[b].numpy()), lb,
+                jc.with_(otf_blue=(nb, 128))))
+            assert np.abs(got[b] - want).max() <= 1e-5 * np.abs(want).max()
+
+
 def test_unported_and_invalid_options_raise():
     tc, _ = _cfgs()
     base = torch.zeros((1, 1, 256, 256), dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="multiple of 128"):
+        # TINY's window is S=128: no smaller sub-window exists
         tpsf.psf_cube_from_base(base, LB, tc.with_(otf_blue=(2, 128)))
+    big = TConfig(**BLUE)
+    base_b = torch.zeros((1, 1, 512, 384))
+    for bad, msg in [((0, 128), "segment length"),
+                     ((4, 128), "segment length"),
+                     ((2, 64), "multiple of 128")]:
+        with pytest.raises(ValueError, match=msg):
+            tpsf.psf_cube_from_base(base_b, LB, big.with_(otf_blue=bad))
+    with pytest.raises(ValueError, match="fold/window"):
+        tpsf._blue_split_cfgs(big.with_(use_sym_fold=False,
+                                        otf_blue=(2, 128)), 4)
     with pytest.raises(ValueError):
         tpsf.psf_cube_from_base(base[..., :128], LB, tc)
     with pytest.raises(ValueError):
