@@ -32,16 +32,33 @@ Phases (any failure raises, so the exit code is non-zero):
    row on the full window; the pinned row (1.0", 0.7, 25 m) against the
    float64 golden PSF (rms <= 1e-5); the CLI result block,
    exact, with K3 launched in it;
-7. the 9-direction night (npsflin=3, 100 rows, chunk=44): the plan equals
+7. K5 (the diffraction-disc skip) and K6 (the anchored-Taylor damping)
+   on the full window (4 rows x 35 wavelengths x 9 directions, (1280,
+   768)): K5 against its plain version and against K1 on the same inputs
+   with the real block mask (<= 1e-6 of max|U|), K6 against its plain
+   version (<= 1e-6) and against exact K1 (within ndir x the certified
+   bound x max row-L1(A2) + 1e-5 of max|U|), with the times of each;
+8. the 9-direction night (npsflin=3, 100 rows, chunk=44): the plan equals
    ``golden_plan_night100_npsflin3.json``, launch counts, fits, the mean
    PSF against the same night on the full window (relative max-abs <=
    1e-5) and the per-row FWHM/beta (<= 1e-3 relative), guard trips, five
    warmed nights and one warmed full-window night;
-8. a forced redo: a pinned 128-px window too small for the ultra-weak
-   damping row (0.2", 0.01, 30 m) at 930 nm trips the window guard, and
-   the redone cube equals the full-window one to <= 2e-6 abs;
-9. one JSON line of per-kernel results, the card line, and the final
-   status line ``{"ok": true, "device": {...}}``.
+9. the same night with ``disc_skip=True``: K5 launched, mean PSF within
+   1e-6 relative of the exact night; five warmed nights;
+10. the same night with ``zoom_anchor="auto"``: the plan (which groups
+    resolved to "on"), K6 launched, mean PSF within 1e-5 relative and
+    per-row FWHM/beta within 1e-3 of the exact night, 0 guard trips; five
+    warmed nights; the golden row at npsflin=1 with the anchor forced
+    (rms <= 1e-5);
+11. a forced redo: a pinned 128-px window too small for the ultra-weak
+    damping row (0.2", 0.01, 30 m) at 930 nm trips the window guard, and
+    the redone cube equals the full-window one to <= 2e-6 abs;
+12. one JSON line of per-kernel results (each with its bound: the larger
+    of its operations over the 67 TFLOP/s fp32 CUDA-core peak and its
+    bytes over 3.35 TB/s, from this run's shapes), the card line, and the
+    final status line ``{"ok": true, "device": {...}}``.
+
+The default-config nights must launch neither K5 nor K6.
 
 Imports nothing of JAX.
 """
@@ -61,7 +78,11 @@ GOLDEN = os.path.join(DATA, "golden_psf_35l_s1.0_gl0.7_l025.npy")
 CLI_BLOCK = ("FWHM 0.85 0.73 0.62", "BETA 2.73 2.55 2.23")
 LBDA = np.linspace(490, 930, 35)
 ZOOM_SRC = "muse_psfr_tpu_torch/csrc/zoom_dft.cu"
+ANCHOR_SRC = "muse_psfr_tpu_torch/csrc/zoom_anchor.cu"
 JAX_ZOOM = "muse_psfr_tpu/ops/zoom_dft.py"
+#: NVIDIA H100 SXM datasheet peaks: fp32 outside the tensor cores, dense
+#: bf16 tensor cores split three ways (hi*hi + hi*lo + lo*hi), HBM3
+PEAK_FP32, PEAK_TC3, HBM = 67e12, 989e12 / 3, 3.35e12
 
 
 def card_line():
@@ -99,6 +120,35 @@ def cuda_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def roofline(label, contraction, other, nbytes):
+    """The least time the card could take for a kernel's work: the larger
+    of its operations over the fp32 CUDA-core peak (every operation, exp
+    included, counted once) and its bytes (each input read once, each
+    output written once) over the memory rate.  Also printed: the same
+    with the contraction on 3-pass bf16 tensor cores."""
+    t_ops = (contraction + other) / PEAK_FP32 * 1e3
+    t_bytes = nbytes / HBM * 1e3
+    t_tc3 = max((contraction / PEAK_TC3 + other / PEAK_FP32) * 1e3, t_bytes)
+    print(f"{label} bound: {contraction / 1e9:.2f} GFLOP of contraction + "
+          f"{other / 1e9:.2f} G other operations, {nbytes / 1e9:.4f} GB; "
+          f"fp32 CUDA cores {t_ops:.4f} ms, bytes {t_bytes:.4f} ms, 3-pass "
+          f"bf16 tensor cores {t_tc3:.4f} ms")
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None}
+
+
+def zoom_work(B, ndir, n, ncols, nl, m2, elems=None):
+    """(contraction FLOPs, other operations, bytes) of K1/K3/K5's function
+    on ``elems`` live OTF elements (all n x ncols by default): per (row,
+    wavelength, direction, element) an fma, an exp and an add, then the
+    product with dl."""
+    elems = n * ncols if elems is None else elems
+    return (2.0 * B * nl * m2 * elems, float(B * nl * elems * (3 * ndir + 1)),
+            4.0 * (B * ndir * elems + elems + nl * m2 * n + nl + B * nl * ndir
+                   + B * nl * m2 * ncols))
 
 
 def rel_err(torch, got, want):
@@ -179,10 +229,11 @@ def check_zoom_kernel(torch, cfg, dev, rows, nrow, lb, npsflin=1,
     flop = 2.0 * np.prod(a2.shape) * base.shape[-1] * base.shape[0]
     print(f"{label} time {ms:.4f} ms ({flop / ms / 1e9:.2f} TFLOP/s of "
           f"contraction), plain PyTorch {plain_ms:.4f} ms")
+    bound = roofline(label, *zoom_work(*base.shape, *a2.shape[:2]))
     del args, base, a2
     torch.cuda.empty_cache()
     return {"route": "cuda", "source": ZOOM_SRC, "max_abs_err": abs_err,
-            "ms": ms, "plain_ms": plain_ms}
+            "ms": ms, "plain_ms": plain_ms, **bound}
 
 
 def check_conv_kernel(torch, cfg, dev, rows):
@@ -222,10 +273,109 @@ def check_conv_kernel(torch, cfg, dev, rows):
     plain_ms = cuda_ms(torch,
                        lambda: conv_dft.fused_conv_chain_reference(*args), 50)
     print(f"K2 time {ms:.4f} ms, plain PyTorch {plain_ms:.4f} ms")
+    # FMAs per 'same' convolution: forward (2L x n)(n x n), four
+    # (L x n)(n x L), four (n x L)(L x L), two (n x L)(L x n); and ~8
+    # operations per spectrum element
+    per_conv = 2.0 * (2 * L * n * n + 4 * L * L * n + 4 * n * L * L
+                      + 2 * n * n * L)
+    bound = roofline("K2", 2 * B * nl * per_conv, 2.0 * B * nl * 8 * L * L,
+                     4.0 * (2 * B * nl * n * n + 2 * (B + nl) * L * L
+                            + 8 * L * n))
     return {"name": "fused_conv_chain", "route": "cuda",
             "source": "muse_psfr_tpu_torch/csrc/conv_dft.cu",
             "replaces": "muse_psfr_tpu/ops/conv_dft.py:139",
-            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, **bound}
+
+
+def check_disc_anchor_kernels(torch, cfg, dev, rows):
+    """K5 and K6 on the full window (4 rows x 35 wavelengths x 9
+    directions): each against its plain version, K5 against K1 and K6
+    against exact K1 on the same inputs, and the times of all three."""
+    from muse_psfr_tpu_torch.ops import zoom_dft
+    from muse_psfr_tpu_torch.otf.psf import (_anchor_lambda_chunk,
+                                             _anchor_operands,
+                                             _disc_block_mask, pupil_otf,
+                                             zoom_anchor_bound)
+    args = zoom_operands(torch, cfg, dev, rows, 4, LBDA, 3)
+    base, dl, a2 = args[:3]
+    B, ndir, n, ncols = base.shape
+    nl, m2 = a2.shape[:2]
+    exp2 = cfg.zoom_exp2
+    k1 = zoom_dft.fused_exp_zoom(*args, exp2=exp2)
+
+    mask = _disc_block_mask(cfg)
+    got = zoom_dft.fused_exp_zoom_disc(*args, mask, exp2=exp2)
+    want = zoom_dft.fused_exp_zoom_disc_reference(*args, mask, exp2=exp2)
+    torch.cuda.synchronize()
+    err5, rel5 = rel_err(torch, got, want)
+    _, rel51 = rel_err(torch, got, k1)
+    print(f"K5 fused_exp_zoom_disc: dphi {tuple(base.shape)}, "
+          f"{int((mask == 0).sum())} of {mask.size} blocks dead; max abs err "
+          f"{err5:.3e}, relative to max|U| {rel5:.3e} (limit 1e-6); against "
+          f"K1 {rel51:.3e} (limit 1e-6)")
+    if not (rel5 <= 1e-6 and rel51 <= 1e-6):
+        raise RuntimeError(f"K5 disagrees: plain {rel5}, K1 {rel51}")
+    del got, want
+
+    c = cfg.dim // 2                       # full window: local centre
+    k, deg = _anchor_lambda_chunk(cfg, nl), cfg.zoom_anchor_degree
+    astar, coef = _anchor_operands(args[3], k, deg,
+                                   ndir * float(pupil_otf(cfg)[c, c]))
+    a6 = (base, dl, a2, base[:, :, c, c].contiguous(), astar, coef, k)
+    got = zoom_dft.fused_exp_zoom_anchor(*a6)
+    want = zoom_dft.fused_exp_zoom_anchor_reference(*a6)
+    torch.cuda.synchronize()
+    err6, rel6 = rel_err(torch, got, want)
+    bound = zoom_anchor_bound(LBDA, k, deg)
+    row_l1 = float(torch.max(torch.sum(torch.abs(a2.double()), dim=2)))
+    scale = float(torch.max(torch.abs(k1)))
+    atol = ndir * bound * row_l1 + 1e-5 * scale
+    err61 = float(torch.max(torch.abs(got.double() - k1.double())))
+    print(f"K6 fused_exp_zoom_anchor: groups of {k}, degree {deg}, "
+          f"certified bound {bound:.3e}; max abs err {err6:.3e}, relative "
+          f"to max|U| {rel6:.3e} (limit 1e-6); against exact K1 {err61:.3e} "
+          f"= {err61 / scale:.3e} of max|U| (limit {atol:.3e})")
+    if not (rel6 <= 1e-6 and err61 <= atol):
+        raise RuntimeError(f"K6 disagrees: plain {rel6}, K1 {err61}")
+    del got, want, k1
+
+    reps = 3
+    ms1 = cuda_ms(torch, lambda: zoom_dft.fused_exp_zoom(*args, exp2=exp2),
+                  reps)
+    ms5 = cuda_ms(torch, lambda: zoom_dft.fused_exp_zoom_disc(
+        *args, mask, exp2=exp2), reps)
+    ms6 = cuda_ms(torch, lambda: zoom_dft.fused_exp_zoom_anchor(*a6), reps)
+    plain5 = cuda_ms(torch, lambda: zoom_dft.fused_exp_zoom_disc_reference(
+        *args, mask, exp2=exp2), reps)
+    plain6 = cuda_ms(torch, lambda: zoom_dft.fused_exp_zoom_anchor_reference(
+        *a6), reps)
+    print(f"same inputs: K1 {ms1:.4f} ms, K5 {ms5:.4f} ms (plain "
+          f"{plain5:.4f}), K6 {ms6:.4f} ms (plain {plain6:.4f})")
+    live = zoom_dft.disc_live_rows(mask, n, ncols)
+    elems = int(np.sum(live[:, 1] - live[:, 0])) * zoom_dft.N_TILE
+    ng = astar.shape[0]
+    deg1 = deg + 1
+    k5 = dict(name="fused_exp_zoom_disc (K5)", route="cuda",
+              source=ZOOM_SRC, replaces=f"{JAX_ZOOM}:341",
+              max_abs_err=err5, ms=ms5, plain_ms=plain5,
+              **roofline("K5", *zoom_work(B, ndir, n, ncols, nl, m2, elems)))
+    k6 = dict(name="fused_exp_zoom_anchor (K6 _kernel_anchor)",
+              route="cuda", source=ANCHOR_SRC, replaces=f"{JAX_ZOOM}:206",
+              max_abs_err=err6, ms=ms6, plain_ms=plain6,
+              **roofline("K6", 2.0 * B * nl * m2 * n * ncols,
+                         float(B * n * ncols * (ng * ndir * (2 * deg1 + 2)
+                                                + nl * 2 * deg1)),
+                         4.0 * (B * ndir * n * ncols + n * ncols
+                                + nl * m2 * n + B * ndir + ng + nl * deg1
+                                + B * nl * m2 * ncols)))
+    del args, a6, base, a2
+    torch.cuda.empty_cache()
+    return k5, k6
+
+
+def no_disc_or_anchor(counts, label):
+    if counts["zoom_dft_disc"] or counts["zoom_dft_anchor"]:
+        raise RuntimeError(f"{label} launched K5 or K6: {counts}")
 
 
 def check_plan(rows, night, golden):
@@ -282,6 +432,7 @@ def main_path(torch, cfg, rows, card):
           f"{LBDA.size} wavelengths, launches {counts}")
     if counts["zoom_dft"] < 1 or counts["conv_dft"] < 1:
         raise RuntimeError(f"a kernel of the night never ran: {counts}")
+    no_disc_or_anchor(counts, "the 1-direction night")
     unpacked = check_fits(fit, len(rows[0]), psf_mean, fit_mean)
     print(f"all {unpacked['ok'].size} plane fits finite and converged; "
           f"fwhm range {unpacked['fwhm'][..., 0].min() * cfg.pixscale:.3f}"
@@ -315,6 +466,7 @@ def main_path(torch, cfg, rows, card):
         raise RuntimeError(f"CLI block {block} != {CLI_BLOCK}")
     if cli_counts["zoom_dft_rowsplit"] < 1:
         raise RuntimeError(f"K3 never ran on the CLI block: {cli_counts}")
+    no_disc_or_anchor(cli_counts, "the CLI block")
     return counts, cli_counts, night
 
 
@@ -336,6 +488,7 @@ def ndir9_path(torch, cfg, rows, card, guard_log):
           f"trips: {len(guard_log.trips)}")
     if counts["zoom_dft"] < 1 or counts["conv_dft"] < 1:
         raise RuntimeError(f"a kernel of the night never ran: {counts}")
+    no_disc_or_anchor(counts, "the 9-direction night")
     got = check_fits(fit, len(rows[0]), psf_mean, fit_mean)
 
     full = process_batch(*rows, **night, _force_full=True)
@@ -353,7 +506,92 @@ def ndir9_path(torch, cfg, rows, card, guard_log):
     warmed_nights(process_batch, rows, night, card, "9-direction night")
     warmed_nights(process_batch, rows, dict(night, _force_full=True), card,
                   "9-direction night, full window", n=1)
-    return counts, night
+    return counts, night, (psf_mean, got)
+
+
+def disc_night(cfg, rows, card, exact):
+    """The 9-direction night with the disc skip on: K5 on the full-window
+    chunks, the mean PSF against the exact night's."""
+    from muse_psfr_tpu_torch.ops import _build
+    from muse_psfr_tpu_torch.parallel.batch import process_batch
+    night = dict(lbda=LBDA, npsflin=3, cfg=cfg.with_(disc_skip=True),
+                 chunk=44, device="cuda")
+    check_plan(rows, night, "golden_plan_night100_npsflin3.json")
+    _build.reset_launch_counts()
+    fit, psf_mean, fit_mean = process_batch(*rows, **night)
+    counts = _build.launch_counts()
+    rel = float(np.abs(psf_mean - exact[0]).max() / np.abs(exact[0]).max())
+    print(f"9-direction night, disc_skip=True: launches {counts}; mean PSF "
+          f"relative max-abs {rel:.3e} from the exact night (limit 1e-6)")
+    if counts["zoom_dft_disc"] < 1 or counts["zoom_dft_anchor"]:
+        raise RuntimeError(f"K5 did not run on the disc night: {counts}")
+    check_fits(fit, len(rows[0]), psf_mean, fit_mean)
+    if not rel <= 1e-6:
+        raise RuntimeError(f"the disc night departs from the exact: {rel}")
+    warmed_nights(process_batch, rows, night, card,
+                  "9-direction night, disc_skip=True")
+    return counts
+
+
+def anchor_night(cfg, rows, card, guard_log, exact):
+    """The 9-direction night with zoom_anchor="auto": the plan, K6 on the
+    certified groups, the mean PSF and per-row fits against the exact
+    night's; then the golden row with the anchor forced."""
+    from muse_psfr_tpu_torch.ops import _build
+    from muse_psfr_tpu_torch.parallel.batch import (plan_batch,
+                                                    process_batch,
+                                                    reconstruct_batch)
+    night = dict(lbda=LBDA, npsflin=3, cfg=cfg.with_(zoom_anchor="auto"),
+                 chunk=44, device="cuda")
+    plan = plan_batch(*rows, **night)
+    print("anchored plan: " + "; ".join(
+        f"{g.cfg.otf_support or 'full'}/{g.cfg.otf_blue} zoom_anchor="
+        f"{g.cfg.zoom_anchor} x {len(g.rows)} rows in {list(g.sizes)}"
+        for g in plan.groups))
+    if not any(g.cfg.zoom_anchor == "on" for g in plan.groups):
+        raise RuntimeError("no group of the night certified the anchor")
+    guard_log.trips.clear()
+    _build.reset_launch_counts()
+    fit, psf_mean, fit_mean = process_batch(*rows, **night)
+    counts = _build.launch_counts()
+    got = check_fits(fit, len(rows[0]), psf_mean, fit_mean)
+    want = exact[1]
+    rel = float(np.abs(psf_mean - exact[0]).max() / np.abs(exact[0]).max())
+    rfw = np.abs(got["fwhm"] - want["fwhm"]) / np.abs(want["fwhm"])
+    rn = np.abs(got["n"] - want["n"]) / np.abs(want["n"])
+    dfw, dn = float(rfw.max()), float(rn.max())
+    worst = np.unravel_index(np.argmax(rn), rn.shape)
+    print(f"9-direction night, zoom_anchor=auto: launches {counts}; "
+          f"window-guard trips: {len(guard_log.trips)}; mean PSF relative "
+          f"max-abs {rel:.3e} from the exact night (limit 1e-5); per-row "
+          f"FWHM {dfw:.3e}, beta {dn:.3e} relative (limit 1e-3; median "
+          f"{float(np.median(rfw)):.3e}, {float(np.median(rn)):.3e}; worst "
+          f"beta at row {worst[0]}, {LBDA[worst[1]]:.1f} nm: "
+          f"{float(got['n'][worst]):.6f} vs {float(want['n'][worst]):.6f})")
+    if counts["zoom_dft_anchor"] < 1 or counts["zoom_dft_disc"]:
+        raise RuntimeError(f"K6 did not run on the anchored night: {counts}")
+    if guard_log.trips:
+        raise RuntimeError(f"guard trips on the anchored night: "
+                           f"{guard_log.trips}")
+    if not (rel <= 1e-5 and dfw <= 1e-3 and dn <= 1e-3):
+        raise RuntimeError("the anchored night departs from the exact one")
+    warmed_nights(process_batch, rows, night, card,
+                  "9-direction night, zoom_anchor=auto")
+
+    _build.reset_launch_counts()
+    cube = reconstruct_batch(*(a[:1] for a in rows), lbda=LBDA,
+                             cfg=cfg.with_(zoom_anchor="on"), chunk=1,
+                             device="cuda")[0]
+    golden_counts = _build.launch_counts()
+    rms = float(np.sqrt(np.mean((cube.astype(np.float64)
+                                 - np.load(GOLDEN)) ** 2)))
+    print(f"golden row (1.0, 0.7, 25), zoom_anchor=on at npsflin=1: rms "
+          f"{rms:.3e} vs the float64 oracle (limit 1e-5); launches "
+          f"{golden_counts}")
+    if golden_counts["zoom_dft_anchor"] < 1 or not rms <= 1e-5:
+        raise RuntimeError(f"anchored golden row: rms {rms}, launches "
+                           f"{golden_counts}")
+    return counts
 
 
 def forced_redo(cfg, guard_log):
@@ -422,7 +660,7 @@ def main(argv):
     print(f"built {[p.name for p in _build.sources()]} for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s -> {lib._name}")
     for line in _build.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("entry function", "registers", "spill")):
             print("  ptxas:", line.strip())
     guard_log = GuardLog()
     logging.getLogger("muse_psfr.batch").addHandler(guard_log)
@@ -451,21 +689,26 @@ def main(argv):
                                       dev, rows, 1, lb3, row_splits=r_cli,
                                       label="K3 CLI"))
     k2 = check_conv_kernel(torch, cfg, dev, rows)
+    k5, k6 = check_disc_anchor_kernels(torch, cfg, dev, rows)
 
     counts, cli_counts, night = main_path(torch, cfg, rows, card)
-    counts9, night9 = ndir9_path(torch, cfg, rows, card, guard_log)
+    counts9, night9, exact9 = ndir9_path(torch, cfg, rows, card, guard_log)
+    counts_disc = disc_night(cfg, rows, card, exact9)
+    counts_anchor = anchor_night(cfg, rows, card, guard_log, exact9)
     forced_redo(cfg, guard_log)
     k1["launches"] = counts["zoom_dft"]
     k2["launches"] = counts["conv_dft"]
     k1_9["launches"] = counts9["zoom_dft"]
     k3["launches"] = k3_cli["launches"] = cli_counts["zoom_dft_rowsplit"]
+    k5["launches"] = counts_disc["zoom_dft_disc"]
+    k6["launches"] = counts_anchor["zoom_dft_anchor"]
     if args.profile:
         profile_night(torch, rows, night, args.profile)
     if args.profile_ndir9:
         profile_night(torch, rows, night9, args.profile_ndir9)
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k1_9, k3, k3_cli, k2]}))
+    print(json.dumps({"kernels": [k1, k1_9, k3, k3_cli, k2, k5, k6]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

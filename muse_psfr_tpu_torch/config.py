@@ -4,13 +4,15 @@ PyTorch counterpart of ``muse_psfr_tpu/config.py``: the same frozen
 dataclass, field for field and with the same defaults, so that a JAX
 configuration carries over unchanged (``state.config_from_reference``).
 
-Two knobs were renamed because they no longer select a Pallas kernel:
-``use_pallas`` is :attr:`GalacsiConfig.use_fused_zoom` (the hand-written
-exp+zoom-DFT kernel, ``ops/zoom_dft.py``) and ``use_pallas_conv`` is
-:attr:`GalacsiConfig.use_fused_conv` (the convolution-chain kernel,
-``ops/conv_dft.py``).  The knobs that only size or lay out TPU VMEM grid
-steps are listed in :data:`TPU_LAYOUT_ONLY`; those that select kernel
-variants the port does not have yet in :data:`NOT_YET_PORTED`.
+Four knobs were renamed because they no longer select a Pallas kernel
+(:data:`RENAMED`): ``use_pallas`` is :attr:`GalacsiConfig.use_fused_zoom`
+(the hand-written exp+zoom-DFT kernel, ``ops/zoom_dft.py``),
+``use_pallas_conv`` is :attr:`GalacsiConfig.use_fused_conv` (the
+convolution-chain kernel, ``ops/conv_dft.py``), and ``pallas_disc_skip``/
+``pallas_disc_min_ndir`` are :attr:`GalacsiConfig.disc_skip`/
+:attr:`GalacsiConfig.disc_min_ndir` (the diffraction-disc skip, K5).  The
+knobs that only size or lay out TPU VMEM grid steps or vector-register
+lanes are listed in :data:`TPU_LAYOUT_ONLY`.
 
 The JAX ``*_precision`` fields choose TPU matmul pass counts.  The port
 runs every contraction in full float32 (TF32 off, see ``utils/device.py``),
@@ -21,23 +23,21 @@ such choice yet and lists them in :data:`NOT_YET_PORTED` too.
 from dataclasses import dataclass, replace
 
 #: JAX config fields renamed in the port: {jax name: port name}
-RENAMED = {"use_pallas": "use_fused_zoom", "use_pallas_conv": "use_fused_conv"}
+RENAMED = {"use_pallas": "use_fused_zoom", "use_pallas_conv": "use_fused_conv",
+           "pallas_disc_skip": "disc_skip",
+           "pallas_disc_min_ndir": "disc_min_ndir"}
 
 #: JAX config fields that only size or lay out the TPU kernels' VMEM grid
-#: steps (wavelengths per launch, directions per step); they mean nothing
-#: on the card, where K1 takes every wavelength in one launch and sums
-#: every direction in registers
-TPU_LAYOUT_ONLY = ("pallas_lambda_chunk", "pallas_dir_block")
+#: steps (wavelengths per launch, directions per step) or pack wavelength
+#: planes into the lanes of a TPU vector register; they mean nothing on
+#: the card, where K1 takes every wavelength in one launch and sums every
+#: direction in registers, and K2 takes one plane per block
+TPU_LAYOUT_ONLY = ("pallas_lambda_chunk", "pallas_dir_block",
+                   "pallas_conv_pack")
 
 #: JAX config fields with no counterpart yet: they choose TPU matmul pass
-#: counts, pack lanes of a TPU vector register, or select kernel variants
-#: still queued in ROADMAP.md (the disc split, the anchored-Taylor damping)
-NOT_YET_PORTED = (
-    "matmul_precision", "zoom_precision", "conv_precision",
-    "pallas_conv_pack", "pallas_disc_skip", "pallas_disc_min_ndir",
-    "zoom_anchor", "zoom_anchor_degree", "zoom_anchor_budget",
-    "zoom_anchor_min_ndir",
-)
+#: counts
+NOT_YET_PORTED = ("matmul_precision", "zoom_precision", "conv_precision")
 
 
 @dataclass(frozen=True)
@@ -110,6 +110,31 @@ class GalacsiConfig:
                                # (ops/zoom_dft.py) on CUDA float32
     use_fused_conv: bool = True  # hand-written conv-chain kernel
                                # (ops/conv_dft.py) on the FFT-free route
+    zoom_anchor: str = "off"   # anchored-Taylor damping (K6,
+                               # ops/zoom_dft.py:fused_exp_zoom_anchor):
+                               # one exponential e^x per direction and
+                               # wavelength group (x = alpha* D, alpha*
+                               # the group's midpoint) and each wavelength
+                               # rebuilt as e^x sum_j ((rho_l - 1) x)^j/j!.
+                               # "auto": the batch planner certifies the
+                               # bound (otf/psf.py:zoom_anchor_bound)
+                               # against zoom_anchor_budget and turns it
+                               # on for nights on CUDA with at least
+                               # zoom_anchor_min_ndir directions;
+                               # "on"/"off" force it.  Default off, as in
+                               # the JAX package
+    zoom_anchor_degree: int = 8   # Taylor degree of the reconstruction
+    zoom_anchor_budget: float = 1e-6  # max certified per-pixel OTF
+                               # abs-error bound for "auto" to engage
+    zoom_anchor_min_ndir: int = 4  # fewest directions for "auto"
+    disc_skip: bool = False    # skip the fused kernel's work outside the
+                               # diffraction OTF's disc (K5,
+                               # ops/zoom_dft.py:fused_exp_zoom_disc):
+                               # the full window's corner blocks, where
+                               # dl <= 1e-12 of its peak
+                               # (otf/psf.py:_disc_block_mask); a no-op
+                               # on windows inside the disc
+    disc_min_ndir: int = 4     # fewest directions for the disc skip
 
     # --- derived ------------------------------------------------------------
     @property

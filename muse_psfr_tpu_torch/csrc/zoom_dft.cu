@@ -1,5 +1,5 @@
-// K1 and K3: fused direction-averaged system OTF x zoom-DFT stage 1, for
-// Hopper.
+// K1, K3 and K5: fused direction-averaged system OTF x zoom-DFT stage 1,
+// for Hopper.
 //
 // Replaces muse_psfr_tpu/ops/zoom_dft.py:fused_exp_zoom with its bodies
 // _kernel_dirfull (K1), _kernel and _kernel_dirblock (K1', K4: the same
@@ -41,6 +41,17 @@
 // in sequence into a VMEM-resident output block, to fit VMEM; here they
 // run in parallel, to give a launch of one or a few rows enough blocks
 // to fill the 132 SMs (otf/psf.py:_zoom_row_splits).
+//
+// K5 (live != nullptr; replaces zoom_dft.py:fused_exp_zoom_disc): the
+// same body, given a table of live contraction rows [lo, hi) per 64-column
+// tile, derived on the host from the diffraction OTF's 128 x 128 block mask
+// (otf/psf.py:_disc_block_mask).  Each block loops only over the live rows
+// of its tile, intersected with its row slice, so the dead corner blocks of
+// the full window cost neither exponentials nor FMAs (6 of 60 blocks at
+// dim 1280, 10% of the work).  The TPU split the columns into groups, one
+// launch each, and concatenated; here it is one launch and no copy, and a
+// block with no live rows in its slice writes zeros.  What bounds it is what
+// bounds K1, on 10% less work.
 
 #include <cuda_runtime.h>
 
@@ -60,6 +71,7 @@ fused_exp_zoom_kernel(const float* __restrict__ dphi,   // (B, ndir, n, ncols)
                       const float* __restrict__ a2,     // (nl, m2, n)
                       const float* __restrict__ alpha,  // (nl,)
                       const float* __restrict__ w,      // (B, nl, ndir)
+                      const int* __restrict__ live,     // (ncols/TJ, 2)
                       float* __restrict__ out,  // (R, B, nl, m2, ncols)
                       int B, int ndir, int n, int ncols, int nl, int m2,
                       int use_exp2, int nib, int R) {
@@ -77,7 +89,11 @@ fused_exp_zoom_kernel(const float* __restrict__ dphi,   // (B, ndir, n, ncols)
   const int tx = t % 16;
   const int ty = t / 16;
   const int h = n / R;               // rows of this slice: [r*h, (r+1)*h)
-  const int n_lo = r * h, n_hi = n_lo + h;
+  int n_lo = r * h, n_hi = n_lo + h;
+  if (live != nullptr) {             // K5: only the tile's live rows
+    n_lo = max(n_lo, live[2 * jt]);
+    n_hi = min(n_hi, live[2 * jt + 1]);
+  }
 
   const float al = alpha[l];
   const float* wl = w + ((size_t)b * nl + l) * ndir;
@@ -159,11 +175,13 @@ __global__ void sum_row_slices(const float* __restrict__ ws,  // (R, total)
 
 // Launches K1 (row_splits == 1: writes u, ws is unused) or K3 (the R row
 // slices into the workspace ws of R * B * nl * m2 * ncols floats, then
-// their ordered sum into u) on `stream`; returns cudaGetLastError()
-// (0 = launched).
+// their ordered sum into u) on `stream`, with K5's table of live rows per
+// column tile when `live` is not null; returns cudaGetLastError() (0 =
+// launched).
 extern "C" int muse_fused_exp_zoom(const float* dphi, const float* dl,
                                    const float* a2, const float* alpha,
-                                   const float* w, float* ws, float* u,
+                                   const float* w, const int* live,
+                                   float* ws, float* u,
                                    long long sb, long long sd, long long sr,
                                    int B, int ndir, int n, int ncols, int nl,
                                    int m2, int row_splits, int use_exp2,
@@ -174,8 +192,8 @@ extern "C" int muse_fused_exp_zoom(const float* dphi, const float* dl,
   const int njt = (ncols + TJ - 1) / TJ;
   const dim3 grid(njt * nib * R, nl, B);
   fused_exp_zoom_kernel<<<grid, NT, 0, st>>>(
-      dphi, sb, sd, sr, dl, a2, alpha, w, R > 1 ? ws : u, B, ndir, n, ncols,
-      nl, m2, use_exp2, nib, R);
+      dphi, sb, sd, sr, dl, a2, alpha, w, live, R > 1 ? ws : u, B, ndir, n,
+      ncols, nl, m2, use_exp2, nib, R);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || R == 1) return static_cast<int>(err);
   const long long total = (long long)B * nl * m2 * ncols;

@@ -2,7 +2,8 @@
 
 The kernels live in ``muse_psfr_tpu_torch/csrc/*.cu`` with a plain C
 interface.  :func:`library` compiles them on first use with ``nvcc`` for
-``sm_90a`` into one shared library under ``build/muse_psfr_tpu_torch/``
+``sm_90a``, one ``nvcc`` process per source, all started together, links
+the objects into one shared library under ``build/muse_psfr_tpu_torch/``
 (named by a hash of the sources and flags, so an edit rebuilds) and loads
 it with ``ctypes``.  Importing this module builds nothing: the CPU tests
 import every module on machines without ``nvcc``.
@@ -28,11 +29,13 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
     "muse_psfr_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 #: {kernel: (module under ``muse_psfr_tpu_torch.ops``, its launch counter)}
 KERNELS = {"zoom_dft": ("zoom_dft", "LAUNCHES"),
            "zoom_dft_rowsplit": ("zoom_dft", "ROWSPLIT_LAUNCHES"),
+           "zoom_dft_disc": ("zoom_dft", "DISC_LAUNCHES"),
+           "zoom_dft_anchor": ("zoom_dft", "ANCHOR_LAUNCHES"),
            "conv_dft": ("conv_dft", "LAUNCHES")}
 
 _LOCK = threading.Lock()
@@ -43,10 +46,14 @@ BUILD_LOG = ""
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # dphi, dl, a2, alpha, w, ws, u, 3 dphi strides, B, ndir, n, ncols,
-    # nl, m2, row_splits, exp2, stream
-    "muse_fused_exp_zoom": [_P] * 7 + [ctypes.c_longlong] * 3 + [_I] * 8
+    # dphi, dl, a2, alpha, w, live, ws, u, 3 dphi strides, B, ndir, n,
+    # ncols, nl, m2, row_splits, exp2, stream
+    "muse_fused_exp_zoom": [_P] * 8 + [ctypes.c_longlong] * 3 + [_I] * 8
     + [_P],
+    # dphi, dl, a2, centre, astar, coef, u, 3 dphi strides, B, ndir, n,
+    # ncols, nl, m2, group, deg1, stream
+    "muse_fused_exp_zoom_anchor": [_P] * 7 + [ctypes.c_longlong] * 3
+    + [_I] * 8 + [_P],
     # planes, gtt_r, gtt_i, gi_r, gi_i, 6 matrices, out, B, nl, n, L, stream
     "muse_fused_conv_chain": [_P] * 12 + [_I] * 4 + [_P],
 }
@@ -79,15 +86,29 @@ def library() -> ctypes.CDLL:
         so = BUILD_DIR / f"libmuse_psfr_kernels-{digest.hexdigest()[:16]}.so"
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            tag = f"{so.stem}.{os.getpid()}"
+            objs = [BUILD_DIR / f"{tag}.{p.stem}.o" for p in srcs]
+            procs = [subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(p)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for p, o in zip(srcs, objs)]
+            logs = [proc.communicate()[0] for proc in procs]
+            failed = [f"{p.name} ({proc.returncode}):\n{log}"
+                      for p, proc, log in zip(srcs, procs, logs)
+                      if proc.returncode]
+            if failed:
+                raise RuntimeError("nvcc failed: " + "\n".join(failed))
+            tmp = so.with_name(f"{tag}.so.tmp")
             proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)],
+                [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
                 capture_output=True, text=True)
             if proc.returncode:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                    f"{proc.stdout}{proc.stderr}")
-            BUILD_LOG = proc.stdout + proc.stderr
+            BUILD_LOG = "".join(logs)
             os.replace(tmp, so)
+            for o in objs:
+                o.unlink()
         lib = ctypes.CDLL(str(so))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

@@ -1,4 +1,4 @@
-"""K1 and K3: fused direction-averaged OTF x zoom-DFT stage 1.
+"""K1, K3, K5 and K6: fused direction-averaged OTF x zoom-DFT stage 1.
 
 Per telemetry row ``b`` and wavelength ``l`` of a chunk,
 
@@ -20,21 +20,36 @@ direction-block bodies (``_kernel``, ``_kernel_dirblock``,
 ``_kernel_dirfull``) compute for any ``dir_block``.  ``row_splits=R > 1``
 is K3 (``_kernel_rowacc``): the contraction rows in R slices whose partial
 products are summed in the fixed order r = 0..R-1.
+
+:func:`fused_exp_zoom_disc` (K5, ``cfg.disc_skip``) is K1 with the dead
+blocks of the diffraction OTF skipped: each 64-column tile contracts only
+its live rows, from a table the wrapper derives from the 128 x 128 block
+mask, in the same launch.  :func:`fused_exp_zoom_anchor` (K6,
+``cfg.zoom_anchor``, ``csrc/zoom_anchor.cu``) evaluates the damping of a
+group of wavelengths from shared power sums of one anchor exponential.
 """
 
 import numpy as np
 import torch
 
 from . import _build
+from ..utils.device import host_const
 
-#: successful launches of the CUDA kernel with one row slice (K1), and
-#: with R > 1 row slices and the ordered sum of their partials (K3); see
-#: ops/_build.py
+#: successful launches of the CUDA kernel with one row slice (K1), with
+#: R > 1 row slices and the ordered sum of their partials (K3), with the
+#: diffraction-disc skip (K5, any R), and of the anchored-Taylor kernel
+#: (K6); see ops/_build.py
 LAUNCHES = 0
 ROWSPLIT_LAUNCHES = 0
+DISC_LAUNCHES = 0
+ANCHOR_LAUNCHES = 0
 
 #: output rows and columns of one CUDA block (``TI``/``TJ`` of the .cu)
 M_TILE, N_TILE = 160, 64
+
+#: K6 limits (``KB``/``DMAX`` of csrc/zoom_anchor.cu): wavelengths per
+#: group, whose accumulators a block keeps in registers, and Taylor degree
+ANCHOR_MAX_GROUP, ANCHOR_MAX_DEGREE = 8, 11
 
 _LOG2E = float(np.log2(np.e))
 
@@ -81,28 +96,20 @@ def _check_splits(n, row_splits):
                          "contraction rows into slices of a multiple of 32")
 
 
-def fused_exp_zoom(dphi, dl, a2, alpha, w, exp2=False, row_splits=1):
-    """K1 (``row_splits=1``) or K3 on the tensors' device: the CUDA
-    kernels for CUDA tensors (float32 only; anything else raises),
-    :func:`fused_exp_zoom_reference` for CPU tensors.  Shapes as in the
-    reference; every tensor contiguous except ``dphi``, which may be any
-    view with unit column stride (the blue sub-window of a structure
-    function)."""
-    global LAUNCHES, ROWSPLIT_LAUNCHES
-    if dphi.device.type == "cpu":
-        return fused_exp_zoom_reference(dphi, dl, a2, alpha, w, exp2,
-                                        row_splits)
+def _launch(name, dphi, dl, a2, alpha, w, exp2, row_splits, live=None):
+    """Check the operands and launch K1/K3 (``live`` None) or K5 (``live``
+    the (ncols/64, 2) int32 device table of live rows per column tile)."""
     B, ndir, n, ncols = dphi.shape
     nl, m2 = a2.shape[0], a2.shape[1]
     _check_splits(n, row_splits)
-    _build.check_operands("fused_exp_zoom", dphi.device, {
+    _build.check_operands(name, dphi.device, {
         "dl": (dl, (n, ncols)), "a2": (a2, (nl, m2, n)),
         "alpha": (alpha, (nl,)), "w": (w, (B, nl, ndir))})
-    _build.check_operands("fused_exp_zoom", dphi.device,
+    _build.check_operands(name, dphi.device,
                           {"dphi": (dphi, (B, ndir, n, ncols))},
                           unit_stride_only=True)
     if nl > 65535 or B > 65535:
-        raise ValueError(f"fused_exp_zoom: grid too large (nl={nl}, B={B})")
+        raise ValueError(f"{name}: grid too large (nl={nl}, B={B})")
     if exp2:
         alpha = alpha * _LOG2E
         w = torch.log2(w)
@@ -114,12 +121,209 @@ def fused_exp_zoom(dphi, dl, a2, alpha, w, exp2=False, row_splits=1):
     sb, sd, sr, _ = dphi.stride()
     err = _build.library().muse_fused_exp_zoom(
         dphi.data_ptr(), dl.data_ptr(), a2.data_ptr(), alpha.data_ptr(),
-        w.data_ptr(), ws.data_ptr(), u.data_ptr(), sb, sd, sr, B, ndir, n,
-        ncols, nl, m2, row_splits, int(exp2),
-        torch.cuda.current_stream(dphi.device).cuda_stream)
-    _build.check_launch(err, "fused_exp_zoom")
+        w.data_ptr(), 0 if live is None else live.data_ptr(), ws.data_ptr(),
+        u.data_ptr(), sb, sd, sr, B, ndir, n, ncols, nl, m2, row_splits,
+        int(exp2), torch.cuda.current_stream(dphi.device).cuda_stream)
+    _build.check_launch(err, name)
+    return u
+
+
+def fused_exp_zoom(dphi, dl, a2, alpha, w, exp2=False, row_splits=1):
+    """K1 (``row_splits=1``) or K3 on the tensors' device: the CUDA
+    kernels for CUDA tensors (float32 only; anything else raises),
+    :func:`fused_exp_zoom_reference` for CPU tensors.  Shapes as in the
+    reference; every tensor contiguous except ``dphi``, which may be any
+    view with unit column stride (the blue sub-window of a structure
+    function)."""
+    global LAUNCHES, ROWSPLIT_LAUNCHES
+    if dphi.device.type == "cpu":
+        return fused_exp_zoom_reference(dphi, dl, a2, alpha, w, exp2,
+                                        row_splits)
+    u = _launch("fused_exp_zoom", dphi, dl, a2, alpha, w, exp2, row_splits)
     if row_splits > 1:
         ROWSPLIT_LAUNCHES += 1
     else:
         LAUNCHES += 1
+    return u
+
+
+# ---- K5: the diffraction-disc skip ---------------------------------------
+
+def disc_column_groups(block_mask, tile_j: int = 128,
+                       row_block: int = 128):
+    """Column groups of a diffraction-support block mask (the JAX
+    package's function of the same name): ``block_mask`` (J, RB), 1 =
+    live; per column tile the live row blocks form one contiguous range
+    (the disc chord), and a tile whose live blocks are empty or not
+    contiguous counts as fully live.  Returns maximal runs of adjacent
+    column tiles with the same range as ``(col_lo, col_hi, row_lo,
+    row_hi)`` element ranges."""
+    mask = np.asarray(block_mask)
+    nj, nrb = mask.shape
+    ranges = []
+    for j in range(nj):
+        live = np.flatnonzero(mask[j])
+        if live.size and live.size == live[-1] - live[0] + 1:
+            ranges.append((int(live[0]), int(live[-1]) + 1))
+        else:                       # empty or non-contiguous: full rows
+            ranges.append((0, nrb))
+    groups = []
+    for j, rng in enumerate(ranges):
+        if groups and groups[-1][2:] == (rng[0] * row_block,
+                                         rng[1] * row_block):
+            lo, hi, rlo, rhi = groups[-1]
+            groups[-1] = (lo, (j + 1) * tile_j, rlo, rhi)
+        else:
+            groups.append((j * tile_j, (j + 1) * tile_j,
+                           rng[0] * row_block, rng[1] * row_block))
+    return groups
+
+
+def disc_live_rows(block_mask, n: int, ncols: int, tile_j: int = 128,
+                   row_block: int = 128):
+    """K5's table: (ncols / 64, 2) int32 ``[lo, hi)`` contraction rows of
+    each 64-column tile of the kernel, from :func:`disc_column_groups` of
+    the (ncols / tile_j, n / row_block) mask."""
+    mask = np.asarray(block_mask)
+    if (tile_j % N_TILE or ncols % tile_j or n % row_block
+            or mask.shape != (ncols // tile_j, n // row_block)):
+        raise ValueError(f"block mask of shape {mask.shape} does not tile "
+                         f"a ({n}, {ncols}) slab in ({row_block}, "
+                         f"{tile_j}) blocks")
+    live = np.zeros((ncols // N_TILE, 2), np.int32)
+    for col_lo, col_hi, row_lo, row_hi in disc_column_groups(
+            mask, tile_j, row_block):
+        live[col_lo // N_TILE:col_hi // N_TILE] = (row_lo, row_hi)
+    return live
+
+
+def fused_exp_zoom_disc_reference(dphi, dl, a2, alpha, w, block_mask,
+                                  exp2=False, row_splits=1):
+    """Plain PyTorch K5: :func:`fused_exp_zoom_reference` with ``dl``
+    zeroed outside each column tile's live rows
+    (:func:`disc_live_rows`), which is the restricted contraction the
+    kernel and the JAX package's column groups compute."""
+    n, ncols = dl.shape
+    live = torch.as_tensor(disc_live_rows(block_mask, n, ncols),
+                           device=dl.device)
+    rows = torch.arange(n, device=dl.device)[:, None]
+    tiles = live[torch.arange(ncols, device=dl.device) // N_TILE]
+    keep = (rows >= tiles[:, 0]) & (rows < tiles[:, 1])  # (n, ncols)
+    return fused_exp_zoom_reference(dphi, dl * keep, a2, alpha, w, exp2,
+                                    row_splits)
+
+
+def fused_exp_zoom_disc(dphi, dl, a2, alpha, w, block_mask, exp2=False,
+                        row_splits=1):
+    """K5 on the tensors' device: K1's CUDA body with each 64-column tile
+    looping only over its live rows (intersected with its K3 row slice
+    when ``row_splits > 1``), in one launch, for CUDA tensors;
+    :func:`fused_exp_zoom_disc_reference` for CPU tensors.  Counterpart
+    of the JAX package's ``fused_exp_zoom_disc``, which runs one launch
+    per column group and concatenates; the result matches it up to
+    summation order (the skipped blocks hold ``|dl| <= 1e-12`` of its
+    peak)."""
+    global DISC_LAUNCHES
+    if dphi.device.type == "cpu":
+        return fused_exp_zoom_disc_reference(dphi, dl, a2, alpha, w,
+                                             block_mask, exp2, row_splits)
+    n, ncols = dphi.shape[2], dphi.shape[3]
+    mask = np.ascontiguousarray(block_mask, dtype=np.int32)
+    live = host_const(("disc_live", mask.tobytes(), mask.shape, n, ncols),
+                      lambda: disc_live_rows(mask, n, ncols), dphi.device,
+                      torch.int32)
+    u = _launch("fused_exp_zoom_disc", dphi, dl, a2, alpha, w, exp2,
+                row_splits, live)
+    DISC_LAUNCHES += 1
+    return u
+
+
+# ---- K6: the anchored-Taylor damping -------------------------------------
+
+def _anchor_shapes(dphi, a2, centre, astar, coef, group):
+    B, ndir = dphi.shape[0], dphi.shape[1]
+    nl, deg1 = coef.shape
+    ng = -(-nl // group) if group >= 1 else 0
+    if (group < 1 or a2.shape[0] != nl or tuple(astar.shape) != (ng,)
+            or tuple(centre.shape) != (B, ndir)):
+        raise ValueError(
+            f"fused_exp_zoom_anchor: {nl} wavelengths in groups of {group} "
+            f"need astar ({ng},) and centre ({B}, {ndir}); got "
+            f"{tuple(astar.shape)}, {tuple(centre.shape)}, a2 "
+            f"{tuple(a2.shape)}")
+    return nl, deg1
+
+
+def fused_exp_zoom_anchor_reference(dphi, dl, a2, centre, astar, coef,
+                                    group):
+    """Plain PyTorch K6: ``U[b, l] = A2[l] @ ((sum_j coef[l, j] H_j[b]) *
+    dl)``, ``H_j[b] = sum_d e^x x^j`` with ``x = astar[g] * (D[b, d] -
+    centre[b, d])`` for the group ``g = l // group`` of wavelength l.
+
+    dphi (B, ndir, N, ncols); dl (N, ncols); a2 (nl, 2M, N); centre (B,
+    ndir) the values subtracted per (row, direction), so that the JAX
+    package's shifted copy of D is never made; astar (ceil(nl/group),);
+    coef (nl, degree+1).  Returns (B, nl, 2M, ncols).  The power sums and
+    the per-wavelength combination run in the JAX kernel's order."""
+    nl, deg1 = _anchor_shapes(dphi, a2, centre, astar, coef, group)
+    out = []
+    for g, l0 in enumerate(range(0, nl, group)):
+        hs = None
+        for d in range(dphi.shape[1]):
+            x = astar[g] * (dphi[:, d] - centre[:, d, None, None])
+            f = torch.exp(x)
+            pw = [f]
+            for _ in range(deg1 - 1):
+                pw.append(pw[-1] * x)
+            hs = pw if hs is None else [h + p for h, p in zip(hs, pw)]
+        gl = []
+        for l in range(l0, min(l0 + group, nl)):
+            acc = coef[l, 0] * hs[0]
+            for j in range(1, deg1):
+                acc = acc + coef[l, j] * hs[j]
+            gl.append(acc * dl)
+        out.append(torch.matmul(a2[l0:l0 + group], torch.stack(gl, dim=1)))
+    return torch.cat(out, dim=1)
+
+
+def fused_exp_zoom_anchor(dphi, dl, a2, centre, astar, coef, group):
+    """K6 on the tensors' device: the CUDA kernel (``csrc/zoom_anchor.cu``)
+    for CUDA tensors (float32 only; groups of at most
+    :data:`ANCHOR_MAX_GROUP` wavelengths, degree at most
+    :data:`ANCHOR_MAX_DEGREE`; anything else raises),
+    :func:`fused_exp_zoom_anchor_reference` for CPU tensors.  Counterpart
+    of the JAX package's ``fused_exp_zoom_anchor``, with every group of
+    the cube in one launch.  ``dphi`` may be any view with unit column
+    stride."""
+    global ANCHOR_LAUNCHES
+    if dphi.device.type == "cpu":
+        return fused_exp_zoom_anchor_reference(dphi, dl, a2, centre, astar,
+                                               coef, group)
+    B, ndir, n, ncols = dphi.shape
+    nl, deg1 = _anchor_shapes(dphi, a2, centre, astar, coef, group)
+    m2 = a2.shape[1]
+    if group > ANCHOR_MAX_GROUP or deg1 > ANCHOR_MAX_DEGREE + 1:
+        raise ValueError(
+            f"fused_exp_zoom_anchor: groups of {group} wavelengths at "
+            f"degree {deg1 - 1}; the kernel takes at most "
+            f"{ANCHOR_MAX_GROUP} and {ANCHOR_MAX_DEGREE}")
+    _build.check_operands("fused_exp_zoom_anchor", dphi.device, {
+        "dl": (dl, (n, ncols)), "a2": (a2, (nl, m2, n)),
+        "centre": (centre, (B, ndir)), "astar": (astar, astar.shape),
+        "coef": (coef, (nl, deg1))})
+    _build.check_operands("fused_exp_zoom_anchor", dphi.device,
+                          {"dphi": (dphi, (B, ndir, n, ncols))},
+                          unit_stride_only=True)
+    if B > 65535:
+        raise ValueError(f"fused_exp_zoom_anchor: grid too large (B={B})")
+    u = torch.empty((B, nl, m2, ncols), dtype=torch.float32,
+                    device=dphi.device)
+    sb, sd, sr, _ = dphi.stride()
+    err = _build.library().muse_fused_exp_zoom_anchor(
+        dphi.data_ptr(), dl.data_ptr(), a2.data_ptr(), centre.data_ptr(),
+        astar.data_ptr(), coef.data_ptr(), u.data_ptr(), sb, sd, sr, B,
+        ndir, n, ncols, nl, m2, group, deg1,
+        torch.cuda.current_stream(dphi.device).cuda_stream)
+    _build.check_launch(err, "fused_exp_zoom_anchor")
+    ANCHOR_LAUNCHES += 1
     return u

@@ -16,7 +16,8 @@ reformulations carry over:
    computed, mirrors weighted 2 in the second zoom stage.
 
 The fused step :func:`_psf_chunk_fused` runs the first zoom stage through
-K1, or K3 where a launch has too few blocks for the card
+K1, or K3 where a launch has too few blocks for the card, K5 with the
+diffraction-disc skip, K6 with the anchored-Taylor damping
 (``ops/zoom_dft.py``); :func:`_psf_chunk_plain` is the unfused
 per-wavelength body.  ``cfg.otf_blue`` runs the bluest wavelengths on a
 smaller centred sub-window of the same structure function.
@@ -31,6 +32,9 @@ from ..core.grids import centered_freq_radius
 from ..core.vonkarman import (fitting_expansion_max_rel_error,
                               fitting_expansion_spec)
 from ..utils.device import host_const
+from ..utils.log import get_logger
+
+logger = get_logger("psf")
 
 _PUPIL_OTF_CACHE = {}
 _DPHI_BASIS_CACHE = {}
@@ -58,6 +62,42 @@ def pupil_otf(cfg: GalacsiConfig):
         otf = np.abs(np.fft.fft2(amp)) / pup.sum()
         _PUPIL_OTF_CACHE[key] = np.fft.fftshift(otf)
     return _PUPIL_OTF_CACHE[key]
+
+
+_DISC_MASK_CACHE = {}
+
+
+def _disc_block_mask(cfg: GalacsiConfig, tile_j: int = 128,
+                     row_block: int = 128):
+    """Live-block mask of the fused zoom kernel over the diffraction OTF's
+    support (``cfg.disc_skip``; counterpart of the JAX package's
+    ``_disc_block_mask``, at its 128 x 128 granularity).
+
+    ``dl`` (:func:`pupil_otf`) is supported on the disc of radius dim/2
+    about the grid centre; outside it, it is FFT roundoff.  A (row_block,
+    tile_j) block of the computed slab is dead iff its max ``|dl|`` is
+    ``<= 1e-12 * max |dl|`` on the float64 host table: the full window's
+    corner blocks (6 of 60 at dim=1280), never a block of a window inside
+    the disc.  Returns int32 (ncols // tile_j, nrows // row_block), 1 =
+    compute, or None when nothing is dead or the slab is not
+    block-aligned.
+    """
+    r_lo, r_hi, col_hi, _ = _window_bounds(cfg)
+    key = (_pupil_key(cfg), r_lo, r_hi, col_hi, tile_j, row_block)
+    if key in _DISC_MASK_CACHE:
+        return _DISC_MASK_CACHE[key]
+    dl = pupil_otf(cfg)
+    slab = dl[r_lo:r_hi, r_lo:col_hi]
+    nrows, ncols = slab.shape
+    mask = None
+    if nrows % row_block == 0 and ncols % tile_j == 0:
+        bmax = np.abs(slab).reshape(nrows // row_block, row_block,
+                                    ncols // tile_j, tile_j).max(axis=(1, 3))
+        live = (bmax > 1e-12 * np.abs(dl).max()).T       # (J, RB)
+        if not live.all():
+            mask = np.ascontiguousarray(live.astype(np.int32))
+    _DISC_MASK_CACHE[key] = mask
+    return mask
 
 
 def _centered_idft_np(dim: int, cols=None):
@@ -375,6 +415,114 @@ def _zoom_row_splits(n_blocks: int, n: int, sm_count: int) -> int:
     return valid[-1] if valid else 1
 
 
+def _anchor_lambda_chunk(cfg: GalacsiConfig, nl: int) -> int:
+    """Wavelengths per anchor group of K6 (``fused_exp_zoom_anchor``):
+    ``min(cfg.lambda_chunk, nl, ANCHOR_MAX_GROUP)``, shared by the chunk
+    path and the host certification (:func:`resolve_zoom_anchor`).
+
+    The JAX package sizes its groups by the TPU's VMEM model, which means
+    nothing here.  On the card one launch takes every group, and a block
+    keeps the accumulators of all its group's wavelengths in registers,
+    which caps a group at ``ANCHOR_MAX_GROUP`` (8).  Within that, fewer
+    groups mean fewer exponentials, and the certified bound grows with the
+    group: on the bench grid (35 wavelengths, 490-930 nm, degree 8) groups
+    of 7 certify 1.6e-8 and of 8 7.4e-8, against the 1e-6 budget.  The
+    default 7 keeps the JAX package's ``lambda_chunk``.
+    """
+    from ..ops.zoom_dft import ANCHOR_MAX_GROUP
+    return max(1, min(int(cfg.lambda_chunk), int(nl), ANCHOR_MAX_GROUP))
+
+
+def zoom_anchor_bound(lbda_nm, k: int, degree: int) -> float:
+    """Certified per-pixel OTF abs-error bound of the anchored-Taylor
+    damping (``cfg.zoom_anchor``), maximised over the groups of ``k``
+    consecutive wavelengths (counterpart of the JAX package's function of
+    the same name).
+
+    Per group the kernel evaluates ``e^{alpha_l D} = e^x sum_j u^j/j!``
+    truncated at ``degree``, with ``x = alpha* D`` (``alpha*`` the
+    midpoint of the group's alphas) and ``u = (alpha_l/alpha* - 1) x``.
+    With ``r = max_l |alpha_l/alpha* - 1|``, ``t = -x >= 0`` and ``p =
+    degree + 1`` the truncation error is at most ``e^{-t} (r t)^p/p!
+    e^{r t}``, whose supremum over t is ``(r p/(1 - r))^p e^{-p}/p!``:
+    uniform in D, so it certifies every pixel, direction and row at once.
+    A ragged last group is padded with its last wavelength, which leaves
+    its bound unchanged.  +inf when any group has ``r >= 1`` or the grid
+    is not finite and positive.
+    """
+    from math import factorial
+    lb = np.asarray(lbda_nm, np.float64).ravel()
+    if lb.size == 0 or not np.all(np.isfinite(lb)) or np.any(lb <= 0):
+        return np.inf
+    pad = (-lb.size) % k
+    if pad:
+        lb = np.concatenate([lb, np.repeat(lb[-1], pad)])
+    al = -0.5 * (2.0 * np.pi / lb) ** 2
+    p = degree + 1
+    worst = 0.0
+    for c in al.reshape(-1, k):
+        astar = 0.5 * (c.min() + c.max())
+        r = np.max(np.abs(c / astar - 1.0))
+        if r >= 1.0:
+            return np.inf
+        worst = max(worst, (r * p / (1.0 - r)) ** p
+                    * np.exp(-p) / factorial(p))
+    return worst
+
+
+def resolve_zoom_anchor(cfg: GalacsiConfig, lbda_nm, ndir: int,
+                        device="cuda") -> GalacsiConfig:
+    """Resolve ``cfg.zoom_anchor == "auto"`` on the host: "on" iff the
+    night runs on CUDA through the fused kernels (``use_fused_zoom``,
+    ``use_zoom_dft``, float32, ``dim % 128 == 0``, a degree K6 takes),
+    has at least
+    ``cfg.zoom_anchor_min_ndir`` directions, and the certified bound
+    (:func:`zoom_anchor_bound` at :func:`_anchor_lambda_chunk`) is within
+    ``cfg.zoom_anchor_budget``.  Otherwise "auto" is kept, which the chunk
+    path runs as "off" (as the JAX package does off the TPU); "on" and
+    "off" pass through.  ``device`` is the night's target: a CPU process
+    may plan a card night."""
+    if cfg.zoom_anchor != "auto" or ndir < cfg.zoom_anchor_min_ndir:
+        return cfg
+    from ..ops.zoom_dft import ANCHOR_MAX_DEGREE
+    if not (torch.device(device).type == "cuda" and cfg.use_fused_zoom
+            and cfg.use_zoom_dft and cfg.dtype == "float32"
+            and cfg.dim % 128 == 0
+            and cfg.zoom_anchor_degree <= ANCHOR_MAX_DEGREE):
+        return cfg
+    lb = np.asarray(lbda_nm, np.float64).ravel()
+    k = _anchor_lambda_chunk(cfg, lb.size)
+    bound = zoom_anchor_bound(lb, k, cfg.zoom_anchor_degree)
+    if bound > cfg.zoom_anchor_budget:
+        logger.warning(
+            "zoom_anchor auto-disabled: certified bound %.2e exceeds "
+            "budget %.2e (degree %d, group %d)", bound,
+            cfg.zoom_anchor_budget, cfg.zoom_anchor_degree, k)
+        return cfg
+    return cfg.with_(zoom_anchor="on")
+
+
+def _anchor_operands(alpha, k: int, degree: int, norm: float):
+    """K6's per-group anchors and per-wavelength coefficients: ``astar``
+    (ceil(nl/k),) the midpoint alpha of each group of ``k`` wavelengths,
+    ``coef`` (nl, degree+1) = ``(alpha_l/astar_g - 1)^j / j! / norm``.
+    The powers are cumulative products, as in the JAX package: a negative
+    base has no real power."""
+    from math import factorial
+    nl = alpha.shape[0]
+    astar = torch.stack([0.5 * (torch.min(alpha[i:i + k])
+                                + torch.max(alpha[i:i + k]))
+                         for i in range(0, nl, k)])
+    rho1 = alpha / torch.repeat_interleave(astar, k)[:nl] - 1.0
+    cols = [torch.ones_like(rho1)]
+    for _ in range(degree):
+        cols.append(cols[-1] * rho1)
+    fact = torch.as_tensor([float(factorial(j)) for j in range(degree + 1)],
+                           dtype=alpha.dtype, device=alpha.device)
+    coef = torch.stack(cols, dim=1) / fact[None, :] / norm
+    return astar.contiguous(), coef.contiguous()
+
+
 def _psf_chunk_fused(base, lb_k, npix_k, cfg: GalacsiConfig):
     """Fused path for one wavelength chunk (counterpart of
     ``_psf_chunk_pallas``): K1 builds the direction-averaged system OTF
@@ -383,26 +531,51 @@ def _psf_chunk_fused(base, lb_k, npix_k, cfg: GalacsiConfig):
     idle); the second stage and the bilinear combine follow as plain
     contractions.
 
+    ``cfg.zoom_anchor == "on"`` runs K6 instead: the structure function
+    shifted by each direction's centre value (which makes every DC
+    normaliser exactly 1, so the weights fold into the coefficients), one
+    exponential per direction and wavelength group.  ``cfg.disc_skip`` at
+    ``ndir >= cfg.disc_min_ndir`` runs K5 where the window has dead
+    diffraction blocks (:func:`_disc_block_mask`).
+
     ``base``: (B, ndir, rows, cols) windowed structure function, which
     may be a strided view (the blue sub-window); ``lb_k``/``npix_k``: (k,)
     wavelengths [nm] and crop sizes.  Returns (B, k, dimpsf, dimpsf)
     normalised PSF samples.
     """
-    from ..ops.zoom_dft import M_TILE, N_TILE, fused_exp_zoom
+    from ..ops import zoom_dft
     nout = cfg.dimpsf
+    ndir = base.shape[1]
     a2, alpha, w, ar2, ai2, t = _zoom_operands(base, lb_k, npix_k, cfg)
-    splits = 1
-    if base.device.type == "cuda":
-        B, _, n, ncols = base.shape
-        n_blocks = (B * a2.shape[0] * -(-ncols // N_TILE)
-                    * -(-a2.shape[1] // M_TILE))
-        sms = torch.cuda.get_device_properties(
-            base.device).multi_processor_count
-        splits = _zoom_row_splits(n_blocks, n, sms)
-    u = fused_exp_zoom(base, _dl_window(cfg, base.device, base.dtype), a2,
-                       alpha, w, exp2=cfg.zoom_exp2,
-                       row_splits=splits)                 # (B, k, 4n, cols)
-    m = 2 * nout
+    dl = _dl_window(cfg, base.device, base.dtype)
+    if cfg.zoom_anchor == "on":
+        c = cfg.dim // 2
+        cc = c - _window_bounds(cfg)[0]
+        k = _anchor_lambda_chunk(cfg, alpha.shape[0])
+        astar, coef = _anchor_operands(alpha, k, cfg.zoom_anchor_degree,
+                                       ndir * float(pupil_otf(cfg)[c, c]))
+        u = zoom_dft.fused_exp_zoom_anchor(
+            base, dl, a2, base[:, :, cc, cc].contiguous(), astar, coef, k)
+    else:
+        splits = 1
+        if base.device.type == "cuda":
+            B, _, n, ncols = base.shape
+            n_blocks = (B * a2.shape[0] * -(-ncols // zoom_dft.N_TILE)
+                        * -(-a2.shape[1] // zoom_dft.M_TILE))
+            sms = torch.cuda.get_device_properties(
+                base.device).multi_processor_count
+            splits = _zoom_row_splits(n_blocks, n, sms)
+        msk = (_disc_block_mask(cfg)
+               if cfg.disc_skip and ndir >= cfg.disc_min_ndir else None)
+        if msk is not None:
+            u = zoom_dft.fused_exp_zoom_disc(base, dl, a2, alpha, w, msk,
+                                             exp2=cfg.zoom_exp2,
+                                             row_splits=splits)
+        else:
+            u = zoom_dft.fused_exp_zoom(base, dl, a2, alpha, w,
+                                        exp2=cfg.zoom_exp2,
+                                        row_splits=splits)
+    m = 2 * nout                                          # u: (B, k, 4n, cols)
     p = (torch.matmul(u[:, :, :m], ar2.transpose(-1, -2))
          - torch.matmul(u[:, :, m:], ai2.transpose(-1, -2)))   # (B, k, m, m)
     out = _combine_bilinear(torch.clamp_min(p, 0.0), t, nout)

@@ -14,9 +14,11 @@ sizes, and groups rows:
   default_support_bucket``) when the host admission model
   (:func:`rows_windowable`) certifies that their damped OTF is below
   1e-12 of the DC outside it, and to the full window otherwise;
-* within each group the bluest wavelengths may run on a smaller centred
-  sub-window (``otf_blue``, :func:`_blue_split_plan`), in up to two tiers
-  at ndir >= 9.
+* ``zoom_anchor="auto"`` is resolved per group (``otf/psf.py:
+  resolve_zoom_anchor``) for the night's target device;
+* within each group that is not anchored the bluest wavelengths may run on
+  a smaller centred sub-window (``otf_blue``, :func:`_blue_split_plan`), in
+  up to two tiers at ndir >= 9.
 
 Every chunk of a reduced window returns its window guard (the margin of
 the structure function on the window boundaries); after the night, the
@@ -37,7 +39,7 @@ from ..fit.moffat_fit import fit_moffat_cube_packed
 from ..otf.convolve import convolve_final
 from ..otf.psf import (_centered_idft_np, dphi_base, dphi_base_split,
                        fitting_dphi_ring_envelopes, lambda_crop_size,
-                       psf_cube_from_base)
+                       psf_cube_from_base, resolve_zoom_anchor)
 from ..core.vonkarman import CST_VK_EXACT, fitting_expansion_spec
 from ..psd.model import (effective_wind_speed, seeing_to_r0, simulate_psd,
                          simulate_psd_split)
@@ -311,7 +313,8 @@ def _blue_split_plan(groups, seeing, GL, L0, gs_mask, lb_np, h_t,
     quantum) plus the remainder, when that saves more exp area by a 4/3
     factor per extra subgroup and the subgroups cover at least a quarter
     of the group.  Requires an ascending wavelength grid; groups already
-    annotated or outside the split-certified range are left alone.
+    annotated, anchored, or outside the split-certified range are left
+    alone.
     """
     nl = lb_np.size
     if nl < 2 or np.any(np.diff(lb_np) < 0):
@@ -320,7 +323,8 @@ def _blue_split_plan(groups, seeing, GL, L0, gs_mask, lb_np, h_t,
     for gcfg, gidx in groups:
         win = gcfg.otf_window
         if (win is None or not gcfg.use_dphi_split
-                or gcfg.otf_blue is not None or gidx.size == 0):
+                or gcfg.zoom_anchor == "on" or gcfg.otf_blue is not None
+                or gidx.size == 0):
             out.append((gcfg, gidx))
             continue
         S = win[1]
@@ -416,15 +420,16 @@ def clamped_chunk(chunk: int, B: int) -> int:
 
 
 def _plan_batch(seeing, GL, L0, gs_mask, lbda, h, npsflin, cfg, chunk,
-                force_full=False):
+                force_full=False, device="cuda"):
     """Host planning: validate, decide the crop sizes in float64, bucket
-    rows by OTF support and blue sub-window, and build the telemetry
-    table.
+    rows by OTF support, resolve the anchored-Taylor damping per group,
+    split off blue sub-windows, and build the telemetry table.
 
     Returns ``(cfg, groups, chunk, table, lbda, h, wind_speed, npixc)``
     with ``groups`` a list of ``(group_cfg, row_indices)``.  A pinned
     ``otf_support``/``otf_blue`` is kept; ``force_full`` (the guard redo)
-    runs every row on the full window at the caller's chunk.
+    runs every row on the full window at the caller's chunk.  ``device``
+    is the night's target, which only ``zoom_anchor="auto"`` reads.
     """
     cfg = cfg or GalacsiConfig()
     wind_speed = effective_wind_speed(h, cfg)
@@ -489,10 +494,14 @@ def _plan_batch(seeing, GL, L0, gs_mask, lbda, h, npsflin, cfg, chunk,
                     elif okw.any():
                         sub = [(cfg_w, rest[okw]), (cfg, rest[~okw])]
             groups += sub
-        if cfg.otf_support == 0:
-            groups = _blue_split_plan(groups, seeing, GL, L0, gs_mask,
-                                      lb_np, h_t, wind_speed, npsflin,
-                                      clamped_chunk(chunk, B))
+    # the anchor per group: certified on the host for the night's device
+    # (the redo's full window resolves as the original night's groups do)
+    groups = [(resolve_zoom_anchor(gcfg, lb_np, npsflin * npsflin, device),
+               gidx) for gcfg, gidx in groups]
+    if not force_full and cfg.otf_support == 0:
+        groups = _blue_split_plan(groups, seeing, GL, L0, gs_mask, lb_np,
+                                  h_t, wind_speed, npsflin,
+                                  clamped_chunk(chunk, B))
     # the redo keeps the caller's chunk (the original night's), padding
     # the redone rows up to it
     chunk = clamped_chunk(chunk, chunk if force_full else B)
@@ -587,28 +596,31 @@ _PLAN_MEMO_MAX = 8
 def plan_batch(seeing, GL, L0, gs_mask, lbda, h=(100, 10000),
                npsflin: int = 1, cfg: GalacsiConfig = None,
                chunk: int = 8, force_full=False,
-               use_tail: bool = None) -> BatchPlan:
+               use_tail: bool = None, device="cuda") -> BatchPlan:
     """The :class:`BatchPlan` of a batch run: host-only planning
     (:func:`_plan_batch`), then each group's chunk schedule.  The last
     partial chunk of a reduced-window group runs at the smallest covering
     size of the tail menu; full-window groups always pad to the chunk.
-    Memoised on the inputs; the plan's arrays are read-only."""
+    ``device`` is the device the night will run on; it decides only how
+    ``zoom_anchor="auto"`` resolves, so a CPU process can plan a card
+    night.  Memoised on the inputs; the plan's arrays are read-only."""
     seeing = np.atleast_1d(np.asarray(seeing, np.float64))
     GL = np.atleast_1d(np.asarray(GL, np.float64))
     L0 = np.atleast_1d(np.asarray(L0, np.float64))
     gs_mask = np.atleast_2d(np.asarray(gs_mask, np.float64))
     if use_tail is None:
         use_tail = not force_full
+    dev_type = torch.device(device).type
     memo_key = (seeing.tobytes(), GL.tobytes(), L0.tobytes(),
                 gs_mask.tobytes(), np.asarray(lbda, np.float64).tobytes(),
                 tuple(np.asarray(h, np.float64).ravel()), npsflin, cfg,
-                int(chunk), bool(force_full), bool(use_tail))
+                int(chunk), bool(force_full), bool(use_tail), dev_type)
     hit = _PLAN_MEMO.get(memo_key)
     if hit is not None:
         return hit
     (cfg_r, groups, chunk_n, table, lb_np, h_t, wind_speed,
      npixc) = _plan_batch(seeing, GL, L0, gs_mask, lbda, h, npsflin, cfg,
-                          chunk, force_full)
+                          chunk, force_full, dev_type)
     gplans = []
     for gcfg, gidx in groups:
         n_main, rem = divmod(gidx.shape[0], chunk_n)
@@ -704,7 +716,7 @@ def reconstruct_batch(seeing, GL, L0, gs_mask, lbda, h=(100, 10000),
     L0 = np.atleast_1d(np.asarray(L0, np.float64))
     gs_mask = np.atleast_2d(np.asarray(gs_mask, np.float64))
     plan = plan_batch(seeing, GL, L0, gs_mask, lbda, h, npsflin, cfg, chunk,
-                      force_full=_force_full)
+                      force_full=_force_full, device=dev)
     (lbda_d, npixc_d), chunks = _chunks(plan, dev)
     idxs, cubes, guards = [], [], []
     for gcfg, rows, t in chunks:
@@ -769,7 +781,7 @@ def process_batch(seeing, GL, L0, gs_mask, lbda, h=(100, 10000),
     L0 = np.atleast_1d(np.asarray(L0, np.float64))
     gs_mask = np.atleast_2d(np.asarray(gs_mask, np.float64))
     plan = plan_batch(seeing, GL, L0, gs_mask, lbda, h, npsflin, cfg, chunk,
-                      force_full=_force_full)
+                      force_full=_force_full, device=dev)
     (lbda_d, npixc_d), chunks = _chunks(plan, dev)
     idxs, fits, psums = [], [], []
     guards, guarded = [], []      # guards of the reduced-window chunks

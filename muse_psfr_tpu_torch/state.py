@@ -22,10 +22,10 @@ from .utils.device import clear_device_consts
 
 def config_from_reference(fields: dict) -> GalacsiConfig:
     """The port's config from a JAX ``GalacsiConfig``'s fields: renamed
-    knobs carried over (``use_pallas`` -> ``use_fused_zoom``,
-    ``use_pallas_conv`` -> ``use_fused_conv``), the fields in
-    :data:`TPU_LAYOUT_ONLY` and :data:`NOT_YET_PORTED` dropped.  Unknown
-    fields raise."""
+    knobs carried over under their port names (:data:`RENAMED`, e.g.
+    ``use_pallas`` -> ``use_fused_zoom``, ``pallas_disc_skip`` ->
+    ``disc_skip``), the fields in :data:`TPU_LAYOUT_ONLY` and
+    :data:`NOT_YET_PORTED` dropped.  Unknown fields raise."""
     names = {f.name for f in dataclasses.fields(GalacsiConfig)}
     kw = {}
     for key, value in fields.items():
@@ -64,6 +64,7 @@ def load_reference_constants(tables: dict, cfg: GalacsiConfig,
     if "pupil_otf" in tables:
         _psf._PUPIL_OTF_CACHE[_psf._pupil_key(cfg)] = np.asarray(
             tables["pupil_otf"], np.float64)
+        _psf._DISC_MASK_CACHE.clear()
     if "coeff_l0" in tables:
         values = np.asarray(tables["coeff_l0"], np.float64)
         if values.shape != coeff_l0.COEFF_L0_GRID.shape:

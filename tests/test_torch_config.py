@@ -35,11 +35,16 @@ def test_every_jax_field_is_ported_renamed_or_listed():
 def test_rename_map_and_not_yet_ported_name_jax_fields():
     jax_fields = _defaults(jcfg.GalacsiConfig)
     assert tcfg.RENAMED == {"use_pallas": "use_fused_zoom",
-                            "use_pallas_conv": "use_fused_conv"}
+                            "use_pallas_conv": "use_fused_conv",
+                            "pallas_disc_skip": "disc_skip",
+                            "pallas_disc_min_ndir": "disc_min_ndir"}
     assert set(tcfg.RENAMED) <= set(jax_fields)
     assert set(tcfg.NOT_YET_PORTED) <= set(jax_fields)
+    assert set(tcfg.NOT_YET_PORTED) == {"matmul_precision", "zoom_precision",
+                                       "conv_precision"}
     assert set(tcfg.TPU_LAYOUT_ONLY) == {"pallas_lambda_chunk",
-                                        "pallas_dir_block"}
+                                        "pallas_dir_block",
+                                        "pallas_conv_pack"}
     dropped = set(tcfg.NOT_YET_PORTED) | set(tcfg.TPU_LAYOUT_ONLY)
     assert not set(tcfg.RENAMED) & dropped
     assert not set(tcfg.NOT_YET_PORTED) & set(tcfg.TPU_LAYOUT_ONLY)
@@ -67,6 +72,19 @@ def test_tiny_config_and_with_():
     assert t.dtype == "float32"                  # frozen original
     with pytest.raises(dataclasses.FrozenInstanceError):
         t.dim = 64
+
+
+@pytest.mark.parametrize("name", ["zoom_anchor", "zoom_anchor_degree",
+                                  "zoom_anchor_budget",
+                                  "zoom_anchor_min_ndir", "pallas_disc_skip",
+                                  "pallas_disc_min_ndir"])
+def test_anchor_and_disc_fields_are_ported(name):
+    """The two kernel switches of K5/K6 and their parameters carry over
+    with the JAX defaults (the disc-skip knobs under port names)."""
+    port = _defaults(tcfg.GalacsiConfig)
+    assert name not in tcfg.NOT_YET_PORTED + tcfg.TPU_LAYOUT_ONLY
+    assert port[tcfg.RENAMED.get(name, name)] == \
+        _defaults(jcfg.GalacsiConfig)[name]
 
 
 def test_bad_support_raises_like_jax():

@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on
-the card (K1 and K3 <= 1e-5, K2 <= 1e-6 relative max-abs; K3 against K1
-<= 2e-6, and bit-identical on a rerun), K1 on a strided structure
-function, and the batch night through the kernels.  Marked ``cuda``:
+the card (K1, K3, K5 and K6 <= 1e-5, K2 <= 1e-6 relative max-abs; K3
+against K1 <= 2e-6, and bit-identical on a rerun), K1 on a strided
+structure function, and the batch night through the kernels.  Marked ``cuda``:
 skipped where no CUDA card is present (CUDA kernels have no CPU mode).
 On a GPU machine:
 
@@ -98,6 +98,62 @@ def test_zoom_kernel_takes_a_strided_view(dev):
     assert _rel(got, want) <= 1e-5
 
 
+@pytest.mark.parametrize("R", [1, 2])
+def test_disc_kernel_matches_plain(dev, R):
+    """K5 with ragged live ranges (a tile with a one-sided range, a fully
+    dead tile, 200 columns so the last 64-column tile is partial): against
+    its plain version, and against K1 on dl zeroed outside the live rows;
+    counted on its own counter only."""
+    from muse_psfr_tpu_torch.ops.zoom_dft import disc_live_rows
+    args = _zoom_args(dev, 2, 9, 512, 256, 170)
+    mask = np.array([[0, 1, 1, 0], [0, 0, 1, 1]], np.int32)
+    before = _build.launch_counts()
+    got = zoom_dft.fused_exp_zoom_disc(*args, mask, exp2=True, row_splits=R)
+    after = _build.launch_counts()
+    assert after["zoom_dft_disc"] == before["zoom_dft_disc"] + 1
+    assert {k: v for k, v in after.items() if k != "zoom_dft_disc"} == \
+        {k: v for k, v in before.items() if k != "zoom_dft_disc"}
+    assert _rel(got, zoom_dft.fused_exp_zoom_disc_reference(
+        *args, mask, exp2=True, row_splits=R)) <= 1e-5
+    live = torch.as_tensor(disc_live_rows(mask, 512, 256), device=dev)
+    rows = torch.arange(512, device=dev)[:, None]
+    tiles = live[torch.arange(256, device=dev) // 64]
+    keep = (rows >= tiles[:, 0]) & (rows < tiles[:, 1])
+    k1 = zoom_dft.fused_exp_zoom(args[0], args[1] * keep, *args[2:],
+                                 exp2=True, row_splits=R)
+    assert _rel(got, k1) <= 2e-6
+
+
+@pytest.mark.parametrize("ndir", [1, 9])
+def test_anchor_kernel_matches_plain(dev, ndir):
+    """K6 on 10 wavelengths in groups of 4 (the last one ragged), degree
+    8, with Taylor coefficients of a MUSE-like alpha spread, 200 output
+    rows (two row blocks) and 200 columns (a partial column tile)."""
+    from math import factorial
+    g = torch.Generator(device="cpu").manual_seed(4)
+    B, n, ncols, m2, nl, k, deg = 2, 256, 200, 200, 10, 4, 8
+    # D - centre >= 0 as for a structure function and its centre value,
+    # deep enough that the anchor exponential underflows in places
+    dphi = torch.rand((B, ndir, n, ncols), generator=g) * 1000
+    dl = torch.rand((n, ncols), generator=g)
+    a2 = torch.randn((nl, m2, n), generator=g) / n
+    centre = dphi.amin(dim=(2, 3)).contiguous()
+    alpha = -0.1 * (1.0 + 0.5 * torch.linspace(0, 1, nl))
+    astar = torch.stack([0.5 * (alpha[i:i + k].min() + alpha[i:i + k].max())
+                         for i in range(0, nl, k)])
+    rho1 = alpha / torch.repeat_interleave(astar, k)[:nl] - 1.0
+    coef = torch.stack([rho1 ** j / factorial(j) for j in range(deg + 1)],
+                       dim=1) / ndir
+    args = [x.to(dev) for x in (dphi, dl, a2, centre, astar, coef)]
+    before = zoom_dft.ANCHOR_LAUNCHES
+    got = zoom_dft.fused_exp_zoom_anchor(*args, k)
+    assert zoom_dft.ANCHOR_LAUNCHES == before + 1
+    assert _rel(got, zoom_dft.fused_exp_zoom_anchor_reference(*args, k)) \
+        <= 1e-5
+    with pytest.raises(ValueError, match="at most"):
+        zoom_dft.fused_exp_zoom_anchor(*args[:4], args[4][:2], args[5], 9)
+
+
 @pytest.mark.parametrize("B,nl,n", [(2, 3, 8), (3, 35, 40)])
 def test_conv_kernel_matches_plain(dev, B, nl, n):
     g = torch.Generator(device="cpu").manual_seed(1)
@@ -125,3 +181,18 @@ def test_night_runs_both_kernels(dev):
     ref = process_batch(*args, cfg=cfg, chunk=2, device="cpu")
     assert np.abs(psf_mean - ref[1]).max() <= 1e-5 * np.abs(ref[1]).max()
     assert np.all(fit[..., -1] == 1.0)
+
+
+def test_anchored_night_runs_k6(dev):
+    """zoom_anchor="on" forced at TINY, npsflin=2: K6 runs and the night
+    matches the CPU run of the same config."""
+    from muse_psfr_tpu_torch.parallel.batch import process_batch
+    cfg = TINY_CONFIG.with_(use_fft=False, zoom_anchor="on")
+    args = ([1.0, 0.8], [0.7, 0.5], [25.0, 14.0], np.ones((2, 4)),
+            [750.0, 800.0, 900.0])
+    _build.reset_launch_counts()
+    _, psf_mean, _ = process_batch(*args, npsflin=2, cfg=cfg, chunk=2,
+                                   device="cuda")
+    assert _build.launch_counts()["zoom_dft_anchor"] > 0
+    ref = process_batch(*args, npsflin=2, cfg=cfg, chunk=2, device="cpu")
+    assert np.abs(psf_mean - ref[1]).max() <= 1e-5 * np.abs(ref[1]).max()

@@ -51,10 +51,27 @@ def test_cpu_tensors_take_the_plain_path_without_launching():
         device="cpu")
     assert np.all(np.isfinite(fit)) and np.all(np.isfinite(psf_mean))
     assert _build.launch_counts() == before
-    assert set(before) == {"zoom_dft", "zoom_dft_rowsplit", "conv_dft"}
+    assert set(before) == {"zoom_dft", "zoom_dft_rowsplit", "zoom_dft_disc",
+                           "zoom_dft_anchor", "conv_dft"}
     assert before["zoom_dft"] == zoom_dft.LAUNCHES
     assert before["zoom_dft_rowsplit"] == zoom_dft.ROWSPLIT_LAUNCHES
+    assert before["zoom_dft_disc"] == zoom_dft.DISC_LAUNCHES
+    assert before["zoom_dft_anchor"] == zoom_dft.ANCHOR_LAUNCHES
     assert before["conv_dft"] == conv_dft.LAUNCHES
+
+
+@pytest.mark.parametrize("cfg_kw", [{"zoom_anchor": "on"},
+                                    {"disc_skip": True, "disc_min_ndir": 1,
+                                     "otf_support": 0}])
+def test_cpu_anchor_and_disc_nights_launch_nothing(cfg_kw):
+    """The K5/K6 branches on CPU tensors run their plain versions."""
+    before = _build.launch_counts()
+    fit, psf_mean, _ = batch.process_batch(
+        [1.0], [0.7], [25.0], np.ones((1, 4)), [800.0, 900.0],
+        cfg=TINY_CONFIG.with_(use_fft=False, **cfg_kw), chunk=1,
+        device="cpu")
+    assert np.all(np.isfinite(fit)) and np.all(np.isfinite(psf_mean))
+    assert _build.launch_counts() == before
 
 
 def test_cuda_request_without_cuda_raises():
@@ -80,8 +97,11 @@ def test_float64_with_fused_kernels_on_cuda_is_refused():
 def test_reset_launch_counts():
     zoom_dft.LAUNCHES, conv_dft.LAUNCHES = 3, 4
     zoom_dft.ROWSPLIT_LAUNCHES = 5
+    zoom_dft.DISC_LAUNCHES, zoom_dft.ANCHOR_LAUNCHES = 6, 7
     assert _build.launch_counts() == {"zoom_dft": 3, "zoom_dft_rowsplit": 5,
-                                      "conv_dft": 4}
+                                      "zoom_dft_disc": 6,
+                                      "zoom_dft_anchor": 7, "conv_dft": 4}
     _build.reset_launch_counts()
     assert _build.launch_counts() == {"zoom_dft": 0, "zoom_dft_rowsplit": 0,
-                                      "conv_dft": 0}
+                                      "zoom_dft_disc": 0,
+                                      "zoom_dft_anchor": 0, "conv_dft": 0}

@@ -249,3 +249,82 @@ def test_zoom_row_splits():
     assert _zoom_row_splits(1, 512, 132) == 8
     assert _zoom_row_splits(1, 96, 132) == 1
     assert _zoom_row_splits(1, 128, 132) == 4
+
+
+@pytest.mark.parametrize("name,n,chunk,npsflin", [
+    ("night100", 100, 50, 1),
+    ("night1000", 1000, 100, 1),
+    ("night100_npsflin3", 100, 44, 3),
+])
+def test_golden_plan_with_auto_anchor_planned_for_the_cpu(name, n, chunk,
+                                                          npsflin):
+    """zoom_anchor="auto" planned for the CPU keeps "auto" (run as off):
+    the three golden plans do not move."""
+    plan = tbatch.plan_batch(*build_rows(n), LB35, npsflin=npsflin,
+                             cfg=TConfig(zoom_anchor="auto"), chunk=chunk,
+                             device="cpu")
+    with open(os.path.join(ROOT, "tests", "data",
+                           f"golden_plan_{name}.json")) as fh:
+        assert plan.summary() == json.load(fh)
+
+
+def _patch_jax_anchor_for_the_card(monkeypatch):
+    """JAX's "auto" resolution as on the TPU, with its group size patched
+    to the port's rule."""
+    from muse_psfr_tpu.otf import psf as jpsf
+    from muse_psfr_tpu_torch.otf.psf import _anchor_lambda_chunk
+    monkeypatch.setattr(jpsf.jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jpsf, "_anchor_lambda_chunk",
+                        lambda c, nl, nrows: _anchor_lambda_chunk(c, nl))
+
+
+def test_auto_anchor_plan_for_the_card(monkeypatch):
+    """The 9-direction bench night with zoom_anchor="auto" planned for
+    CUDA: every group certifies (bound 1.6e-8 in groups of 7), is
+    anchored and gets no blue split; the plan equals the JAX package's
+    with the anchor resolved as on its TPU.  The 1-direction night keeps
+    its golden plan (too few directions)."""
+    rows = build_rows(100)
+    cfg = TConfig(zoom_anchor="auto")
+    plan = tbatch.plan_batch(*rows, LB35, npsflin=3, cfg=cfg, chunk=44,
+                             device="cuda")
+    assert [g.cfg.zoom_anchor for g in plan.groups] == ["on"] * 2
+    assert all(g.cfg.otf_blue is None for g in plan.groups)
+    assert [(g.cfg.otf_support, len(g.rows)) for g in plan.groups] == \
+        [(256, 56), (0, 44)]
+    _patch_jax_anchor_for_the_card(monkeypatch)
+    want = jbatch.plan_batch(*rows, LB35, npsflin=3,
+                             cfg=JConfig(zoom_anchor="auto"),
+                             chunk=44).summary()
+    assert plan.summary() == want
+    one = tbatch.plan_batch(*rows, LB35, npsflin=1, cfg=cfg, chunk=50,
+                            device="cuda")
+    with open(os.path.join(ROOT, "tests", "data",
+                           "golden_plan_night100.json")) as fh:
+        assert one.summary() == json.load(fh)
+
+
+def test_auto_anchor_redo_plan_resolves_on_the_full_window():
+    s, g, l0, m = build_rows(5)
+    plan = tbatch.plan_batch(s, g, l0, m, LB35, npsflin=3,
+                             cfg=TConfig(zoom_anchor="auto"), chunk=44,
+                             force_full=True, device="cuda")
+    assert [(gr.cfg.otf_support, gr.cfg.zoom_anchor) for gr in plan.groups] \
+        == [(0, "on")]
+    # an uncertified bound keeps "auto": degree 2 on the bench grid
+    plan = tbatch.plan_batch(s, g, l0, m, LB35, npsflin=3,
+                             cfg=TConfig(zoom_anchor="auto",
+                                         zoom_anchor_degree=2), chunk=44,
+                             device="cuda")
+    assert {gr.cfg.zoom_anchor for gr in plan.groups} == {"auto"}
+
+
+def test_blue_split_leaves_anchored_groups_alone():
+    rows = build_rows(30)
+    lb = np.linspace(500.0, 900.0, 8)
+    cfg = TConfig(zoom_anchor="on", **BLUE_KW)
+    groups = [(cfg, np.arange(30)), (cfg.with_(zoom_anchor="off"),
+                                     np.arange(30))]
+    out = tbatch._blue_split_plan(groups, *rows, lb, H, 12.0, 3, 8)
+    assert out[0] == groups[0]
+    assert any(gc.otf_blue is not None for gc, _ in out[1:])

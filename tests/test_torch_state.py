@@ -94,8 +94,22 @@ def test_config_from_reference():
                      dtype="float64")
     assert state.config_from_reference(dataclasses.asdict(jc)) == \
         TTINY.with_(use_fused_zoom=False, use_fused_conv=False,
-                    dtype="float64")
+                    zoom_anchor="on", dtype="float64")
     with pytest.raises(ValueError):
         state.config_from_reference({"no_such_field": 1})
+
+
+def test_config_from_reference_carries_anchor_and_disc():
+    """The K5/K6 switches reach the port: the disc-skip knobs under their
+    port names, the anchor fields as they are, the TPU lane-packing knob
+    dropped."""
+    jc = JConfig(zoom_anchor="auto", zoom_anchor_degree=6,
+                 zoom_anchor_budget=1e-7, zoom_anchor_min_ndir=9,
+                 pallas_disc_skip=True, pallas_disc_min_ndir=1,
+                 pallas_conv_pack=2)
+    assert state.config_from_reference(dataclasses.asdict(jc)) == \
+        GalacsiConfig(zoom_anchor="auto", zoom_anchor_degree=6,
+                      zoom_anchor_budget=1e-7, zoom_anchor_min_ndir=9,
+                      disc_skip=True, disc_min_ndir=1)
     with pytest.raises(ValueError):
         state.load_reference_constants({"coeff_l0": np.ones(3)}, TTINY)
