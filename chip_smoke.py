@@ -12,53 +12,71 @@ Run from the repository root on a machine with a CUDA card:
 Phases (any failure raises, so the exit code is non-zero):
 
 1. the card's name and power limit (``nvidia-smi``); CUDA required;
-2. build the hand-written kernels from ``muse_psfr_tpu_torch/csrc``;
-3. K1 (fused exp + zoom DFT) against its plain PyTorch version at the
-   production grid, structure function (1, 1280, 768) per row: 2 rows x
-   12 wavelengths, then one main-path chunk of 50 rows x 35 wavelengths;
-   then K1 at ndir=9 (K1', K4) on 4 rows x 35 wavelengths; relative
-   max-abs <= 1e-5 of max|U|;
-4. K3 (K1 over R contraction-row slices, summed in order) against its
-   plain version (<= 1e-5) and against K1 (<= 1e-6) at the TPU's shape
-   (ndir=9, 1280 rows, R=2, 4 rows x 35 wavelengths) and at the CLI
-   block's (1 row, 3 wavelengths, the S=256 window, R from
+2. build the hand-written kernels from ``muse_psfr_tpu_torch/csrc``
+   (ptxas registers and spills printed);
+3. the FMA body of K1 (zoom_precision "highest") against its plain
+   PyTorch version at the production grid, structure function (1, 1280,
+   768) per row: 2 rows x 12 wavelengths, then one main-path chunk of 50
+   rows x 35 wavelengths; then K1 at ndir=9 (K1', K4) on 4 rows x 35
+   wavelengths; relative max-abs <= 1e-5 of max|U|;
+4. K3 on the FMA body (K1 over R contraction-row slices, summed in order)
+   against its plain version (<= 1e-5) and against K1 (<= 1e-6) at the
+   TPU's shape (ndir=9, 1280 rows, R=2, 4 rows x 35 wavelengths) and at
+   the CLI block's (1 row, 3 wavelengths, the S=256 window, R from
    ``_zoom_row_splits``);
-5. K2 (convolution chain) against its plain version at 50 rows x 35
+5. the tensor-core body ("high", the default: 3-pass bf16) at the same
+   four shapes against its 3-pass plain version (<= 2e-6 of max|U|), with
+   its error against exact float32 K1 (the FMA body), its time, TFLOP/s
+   and bound;
+6. K2 (convolution chain) against its plain version at 50 rows x 35
    planes of 40 x 40 (transform size 64); relative max-abs <= 1e-6;
-6. the 1-direction bench night (100 rows x 35 wavelengths, 490-930 nm,
-   chunk=50, FFT-free config) through the auto planner: the plan equals
-   ``tests/data/golden_plan_night100.json``, launch counts, finite and
-   converged fits, five warmed nights and one warmed night with every
-   row on the full window; the pinned row (1.0", 0.7, 25 m) against the
-   float64 golden PSF (rms <= 1e-5); the CLI result block,
-   exact, with K3 launched in it;
-7. K5 (the diffraction-disc skip) and K6 (the anchored-Taylor damping)
-   on the full window (4 rows x 35 wavelengths x 9 directions, (1280,
-   768)): K5 against its plain version and against K1 on the same inputs
-   with the real block mask (<= 1e-6 of max|U|), K6 against its plain
-   version (<= 1e-6) and against exact K1 (within ndir x the certified
-   bound x max row-L1(A2) + 1e-5 of max|U|), with the times of each;
-8. the 9-direction night (npsflin=3, 100 rows, chunk=44): the plan equals
-   ``golden_plan_night100_npsflin3.json``, launch counts, fits, the mean
-   PSF against the same night on the full window (relative max-abs <=
-   1e-5) and the per-row FWHM/beta (<= 1e-3 relative), guard trips, five
-   warmed nights and one warmed full-window night;
-9. the same night with ``disc_skip=True``: K5 launched, mean PSF within
-   1e-6 relative of the exact night; five warmed nights;
-10. the same night with ``zoom_anchor="auto"``: the plan (which groups
+7. K5 (the diffraction-disc skip) on both bodies and K6 (the
+   anchored-Taylor damping) on the full window (4 rows x 35 wavelengths x
+   9 directions, (1280, 768)): K5 against its plain version (<= 1e-6 on
+   the FMA body, <= 2e-6 on the tensor cores) and against K1 of its body
+   on the same inputs with the real block mask (<= 1e-6 of max|U|), K6
+   against its plain version (<= 1e-6) and against exact K1 (within ndir
+   x the certified bound x max row-L1(A2) + 1e-5 of max|U|), with the
+   times of each;
+8. the 1-direction bench night (100 rows x 35 wavelengths, 490-930 nm,
+   chunk=50, FFT-free config, zoom_precision "high") through the auto
+   planner: the plan equals ``tests/data/golden_plan_night100.json``,
+   launch counts (the tensor-core body only), finite and converged fits,
+   five warmed nights and one warmed night with every row on the full
+   window; the pinned row (1.0", 0.7, 25 m) against the float64 golden
+   PSF (rms <= 1e-5); the CLI result block, exact, with K3 launched in
+   it; then the same night and CLI block at "highest" (the FMA body only;
+   mean PSF within 1e-5 relative of the "high" night);
+9. the 9-direction night (npsflin=3, 100 rows, chunk=44): the plan
+   equals ``golden_plan_night100_npsflin3.json``, launch counts, fits,
+   the mean PSF against the same night on the full window (relative
+   max-abs <= 1e-5) and the per-row FWHM/beta (<= 1e-3 relative), guard
+   trips, five warmed nights and one warmed full-window night; then the
+   night at "highest" against the night at "high" (mean PSF <= 1e-5,
+   FWHM/beta <= 1e-3);
+10. the same night with ``disc_skip=True`` on each body: K5 launched,
+    mean PSF within 1e-6 relative of the exact night; five warmed nights
+    at "high";
+11. the same night with ``zoom_anchor="auto"``: the plan (which groups
     resolved to "on"), K6 launched, mean PSF within 1e-5 relative and
     per-row FWHM/beta within 1e-3 of the exact night, 0 guard trips; five
     warmed nights; the golden row at npsflin=1 with the anchor forced
     (rms <= 1e-5);
-11. a forced redo: a pinned 128-px window too small for the ultra-weak
+12. a forced redo: a pinned 128-px window too small for the ultra-weak
     damping row (0.2", 0.01, 30 m) at 930 nm trips the window guard, and
     the redone cube equals the full-window one to <= 2e-6 abs;
-12. one JSON line of per-kernel results (each with its bound: the larger
-    of its operations over the 67 TFLOP/s fp32 CUDA-core peak and its
-    bytes over 3.35 TB/s, from this run's shapes), the card line, and the
-    final status line ``{"ok": true, "device": {...}}``.
+13. one JSON line of per-kernel results, each with its launches on the
+    path that runs it (the default nights for the tensor-core body and
+    K2, the "highest" nights for the FMA body, the switch nights for K5
+    and K6; every one must be > 0) and its bound (the larger of its bytes
+    over 3.35 TB/s and its operations, each over its unit's peak: fp32
+    FLOPs over 67 TFLOP/s, bf16 tensor-core FLOPs over 989 TFLOP/s,
+    exponentials over the SFU's 16 a clock per SM), from this run's
+    shapes; the card line, and the final status line ``{"ok": true,
+    "device": {...}}``.
 
-The default-config nights must launch neither K5 nor K6.
+The default-config nights must launch neither K5 nor K6, and no night at
+"high" may launch the FMA body.
 
 Imports nothing of JAX.
 """
@@ -78,11 +96,17 @@ GOLDEN = os.path.join(DATA, "golden_psf_35l_s1.0_gl0.7_l025.npy")
 CLI_BLOCK = ("FWHM 0.85 0.73 0.62", "BETA 2.73 2.55 2.23")
 LBDA = np.linspace(490, 930, 35)
 ZOOM_SRC = "muse_psfr_tpu_torch/csrc/zoom_dft.cu"
+TC_SRC = "muse_psfr_tpu_torch/csrc/zoom_dft_tc.cu"
 ANCHOR_SRC = "muse_psfr_tpu_torch/csrc/zoom_anchor.cu"
 JAX_ZOOM = "muse_psfr_tpu/ops/zoom_dft.py"
 #: NVIDIA H100 SXM datasheet peaks: fp32 outside the tensor cores, dense
-#: bf16 tensor cores split three ways (hi*hi + hi*lo + lo*hi), HBM3
-PEAK_FP32, PEAK_TC3, HBM = 67e12, 989e12 / 3, 3.35e12
+#: bf16 tensor cores, HBM3; and the SFU's exponentials, 16 a clock per SM
+#: on 132 SMs at the 1.98 GHz boost clock
+PEAK_FP32, PEAK_BF16, HBM = 67e12, 989e12, 3.35e12
+PEAK_EXP = 16 * 132 * 1.98e9
+#: the FMA body's launch counters ("highest"), which a night at "high"
+#: must leave at 0
+FMA_ZOOM = ("zoom_dft", "zoom_dft_rowsplit", "zoom_dft_disc")
 
 
 def card_line():
@@ -122,33 +146,42 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def roofline(label, contraction, other, nbytes):
+def roofline(label, nbytes, fp32=0.0, tc=0.0, exps=0.0):
     """The least time the card could take for a kernel's work: the larger
-    of its operations over the fp32 CUDA-core peak (every operation, exp
-    included, counted once) and its bytes (each input read once, each
-    output written once) over the memory rate.  Also printed: the same
-    with the contraction on 3-pass bf16 tensor cores."""
-    t_ops = (contraction + other) / PEAK_FP32 * 1e3
-    t_bytes = nbytes / HBM * 1e3
-    t_tc3 = max((contraction / PEAK_TC3 + other / PEAK_FP32) * 1e3, t_bytes)
-    print(f"{label} bound: {contraction / 1e9:.2f} GFLOP of contraction + "
-          f"{other / 1e9:.2f} G other operations, {nbytes / 1e9:.4f} GB; "
-          f"fp32 CUDA cores {t_ops:.4f} ms, bytes {t_bytes:.4f} ms, 3-pass "
-          f"bf16 tensor cores {t_tc3:.4f} ms")
+    of its bytes (each input read once, each output written once) over
+    the memory rate and its operations, each over the peak of the unit
+    that runs them: float32 FLOPs on the CUDA cores, bf16 FLOPs on the
+    tensor cores, exponentials on the SFU.  The units run side by side,
+    so the slowest one bounds the operations."""
+    t = {"fp32 cores": fp32 / PEAK_FP32 * 1e3,
+         "bf16 tensor cores": tc / PEAK_BF16 * 1e3,
+         "SFU exp": exps / PEAK_EXP * 1e3}
+    t_ops, t_bytes = max(t.values()), nbytes / HBM * 1e3
+    print(f"{label} bound: {fp32 / 1e9:.2f} GFLOP fp32, {tc / 1e9:.2f} "
+          f"GFLOP bf16, {exps / 1e9:.4f} G exp, {nbytes / 1e9:.4f} GB; "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+          + f", bytes {t_bytes:.4f} ms")
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None}
 
 
-def zoom_work(B, ndir, n, ncols, nl, m2, elems=None):
-    """(contraction FLOPs, other operations, bytes) of K1/K3/K5's function
-    on ``elems`` live OTF elements (all n x ncols by default): per (row,
-    wavelength, direction, element) an fma, an exp and an add, then the
-    product with dl."""
+def zoom_work(B, ndir, n, ncols, nl, m2, precision, elems=None):
+    """:func:`roofline`'s work of K1/K3/K5 on ``elems`` live OTF elements
+    (all n x ncols by default): per (row, wavelength, direction, element)
+    an exponential and three float32 operations (the argument's product
+    and sum, the direction sum), then the product with dl; the
+    contraction in float32 ("highest") or as three bf16 passes on the
+    tensor cores ("high")."""
     elems = n * ncols if elems is None else elems
-    return (2.0 * B * nl * m2 * elems, float(B * nl * elems * (3 * ndir + 1)),
-            4.0 * (B * ndir * elems + elems + nl * m2 * n + nl + B * nl * ndir
-                   + B * nl * m2 * ncols))
+    contraction = 2.0 * B * nl * m2 * elems
+    other = float(B * nl * elems * (3 * ndir + 1))
+    work = dict(nbytes=4.0 * (B * ndir * elems + elems + nl * m2 * n + nl
+                              + B * nl * ndir + B * nl * m2 * ncols),
+                exps=float(B * nl * ndir * elems))
+    if precision == "high":
+        return dict(work, fp32=other, tc=3 * contraction)
+    return dict(work, fp32=contraction + other)
 
 
 def rel_err(torch, got, want):
@@ -193,24 +226,49 @@ def zoom_operands(torch, cfg, dev, rows, nrow, lb, npsflin):
 def check_zoom_kernel(torch, cfg, dev, rows, nrow, lb, npsflin=1,
                       row_splits=1, label="K1"):
     """K1 (``row_splits=1``) or K3 against its plain version, and K3
-    against K1, on the first ``nrow`` bench rows at ``cfg``'s window."""
+    against K1, on the first ``nrow`` bench rows at ``cfg``'s window, on
+    the body of ``cfg.zoom_precision``: the FMA body ("highest", limit
+    1e-5 of max|U|) or the tensor-core body ("high", limit 2e-6 against
+    the 3-pass plain version; its error against exact float32 K1 is
+    printed)."""
     from muse_psfr_tpu_torch.ops import zoom_dft
     args = zoom_operands(torch, cfg, dev, rows, nrow, lb, npsflin)
     base, a2 = args[0], args[2]
-    kw = dict(exp2=cfg.zoom_exp2, row_splits=row_splits)
+    prec = cfg.zoom_precision
+    kw = dict(exp2=cfg.zoom_exp2, row_splits=row_splits, precision=prec)
+    limit = 2e-6 if prec == "high" else 1e-5
     got = zoom_dft.fused_exp_zoom(*args, **kw)
     want = zoom_dft.fused_exp_zoom_reference(*args, **kw)
     torch.cuda.synchronize()
     abs_err, rel = rel_err(torch, got, want)
     del want
-    print(f"{label} fused_exp_zoom(row_splits={row_splits}): dphi "
-          f"{tuple(base.shape)} a2 {tuple(a2.shape)}; max abs err "
-          f"{abs_err:.3e}, relative to max|U| {rel:.3e} (limit 1e-5)")
-    if not rel <= 1e-5:
+    print(f"{label} fused_exp_zoom(row_splits={row_splits}, precision="
+          f"{prec}): dphi {tuple(base.shape)} a2 {tuple(a2.shape)}; max abs "
+          f"err {abs_err:.3e}, relative to max|U| {rel:.3e} (limit "
+          f"{limit:g})")
+    if not rel <= limit:
         raise RuntimeError(f"{label} disagrees with its plain version: "
                            f"{rel}")
+    if prec == "high":
+        exact = zoom_dft.fused_exp_zoom(*args, exp2=cfg.zoom_exp2,
+                                        row_splits=row_splits)
+        torch.cuda.synchronize()
+        err_x, rel_x = rel_err(torch, got, exact)
+        print(f"{label} against exact float32 K1 (the FMA body): max abs "
+              f"{err_x:.3e}, relative to max|U| {rel_x:.3e}")
+        # both bodies against float64 on the row where they differ most
+        b = int(torch.argmax((got - exact).abs().amax(dim=(1, 2, 3))))
+        one = [x.double() for x in args]
+        u64 = zoom_dft.fused_exp_zoom_reference(
+            one[0][b:b + 1], *one[1:4], one[4][b:b + 1], exp2=cfg.zoom_exp2)
+        scale = float(torch.max(torch.abs(u64)))
+        print(f"{label} row {b} against float64, relative to its max|U|: "
+              f"high {float(torch.max(torch.abs(got[b] - u64[0]))) / scale:.3e}"
+              f", highest {float(torch.max(torch.abs(exact[b] - u64[0]))) / scale:.3e}")
+        del exact, one, u64
     if row_splits > 1:
-        k1 = zoom_dft.fused_exp_zoom(*args, exp2=cfg.zoom_exp2)
+        k1 = zoom_dft.fused_exp_zoom(*args, exp2=cfg.zoom_exp2,
+                                     precision=prec)
         again = zoom_dft.fused_exp_zoom(*args, **kw)
         torch.cuda.synchronize()
         _, rel1 = rel_err(torch, got, k1)
@@ -227,13 +285,16 @@ def check_zoom_kernel(torch, cfg, dev, rows, nrow, lb, npsflin=1,
     plain_ms = cuda_ms(torch, lambda: zoom_dft.fused_exp_zoom_reference(
         *args, **kw), reps)
     flop = 2.0 * np.prod(a2.shape) * base.shape[-1] * base.shape[0]
+    passes = (f", {3 * flop / ms / 1e9:.2f} TFLOP/s of bf16 tensor-core "
+              "work" if prec == "high" else "")
     print(f"{label} time {ms:.4f} ms ({flop / ms / 1e9:.2f} TFLOP/s of "
-          f"contraction), plain PyTorch {plain_ms:.4f} ms")
-    bound = roofline(label, *zoom_work(*base.shape, *a2.shape[:2]))
+          f"contraction{passes}), plain PyTorch {plain_ms:.4f} ms")
+    bound = roofline(label, **zoom_work(*base.shape, *a2.shape[:2], prec))
+    print(f"{label} at {bound['bound_ms'] / ms:.1%} of its bound")
     del args, base, a2
     torch.cuda.empty_cache()
-    return {"route": "cuda", "source": ZOOM_SRC, "max_abs_err": abs_err,
-            "ms": ms, "plain_ms": plain_ms, **bound}
+    return {"route": "cuda", "source": TC_SRC if prec == "high" else ZOOM_SRC,
+            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, **bound}
 
 
 def check_conv_kernel(torch, cfg, dev, rows):
@@ -278,9 +339,9 @@ def check_conv_kernel(torch, cfg, dev, rows):
     # operations per spectrum element
     per_conv = 2.0 * (2 * L * n * n + 4 * L * L * n + 4 * n * L * L
                       + 2 * n * n * L)
-    bound = roofline("K2", 2 * B * nl * per_conv, 2.0 * B * nl * 8 * L * L,
-                     4.0 * (2 * B * nl * n * n + 2 * (B + nl) * L * L
-                            + 8 * L * n))
+    bound = roofline("K2", 4.0 * (2 * B * nl * n * n + 2 * (B + nl) * L * L
+                                  + 8 * L * n),
+                     fp32=2 * B * nl * per_conv + 2.0 * B * nl * 8 * L * L)
     return {"name": "fused_conv_chain", "route": "cuda",
             "source": "muse_psfr_tpu_torch/csrc/conv_dft.cu",
             "replaces": "muse_psfr_tpu/ops/conv_dft.py:139",
@@ -290,7 +351,8 @@ def check_conv_kernel(torch, cfg, dev, rows):
 def check_disc_anchor_kernels(torch, cfg, dev, rows):
     """K5 and K6 on the full window (4 rows x 35 wavelengths x 9
     directions): each against its plain version, K5 against K1 and K6
-    against exact K1 on the same inputs, and the times of all three."""
+    against exact K1 on the same inputs, and the times of all three; K5
+    on both bodies (FMA "highest", tensor-core "high")."""
     from muse_psfr_tpu_torch.ops import zoom_dft
     from muse_psfr_tpu_torch.otf.psf import (_anchor_lambda_chunk,
                                              _anchor_operands,
@@ -316,6 +378,23 @@ def check_disc_anchor_kernels(torch, cfg, dev, rows):
     if not (rel5 <= 1e-6 and rel51 <= 1e-6):
         raise RuntimeError(f"K5 disagrees: plain {rel5}, K1 {rel51}")
     del got, want
+
+    high = dict(exp2=exp2, precision="high")
+    k1h = zoom_dft.fused_exp_zoom(*args, **high)
+    got = zoom_dft.fused_exp_zoom_disc(*args, mask, **high)
+    want = zoom_dft.fused_exp_zoom_disc_reference(*args, mask, **high)
+    torch.cuda.synchronize()
+    err5h, rel5h = rel_err(torch, got, want)
+    _, rel51h = rel_err(torch, got, k1h)
+    _, rel5x = rel_err(torch, got, k1)
+    print(f"K5 at high (tensor cores): max abs err {err5h:.3e}, relative "
+          f"to max|U| {rel5h:.3e} (limit 2e-6); against K1 at high "
+          f"{rel51h:.3e} (limit 1e-6); against exact float32 K1 "
+          f"{rel5x:.3e}")
+    if not (rel5h <= 2e-6 and rel51h <= 1e-6):
+        raise RuntimeError(f"K5 at high disagrees: plain {rel5h}, K1 "
+                           f"{rel51h}")
+    del got, want, k1h
 
     c = cfg.dim // 2                       # full window: local centre
     k, deg = _anchor_lambda_chunk(cfg, nl), cfg.zoom_anchor_degree
@@ -349,8 +428,15 @@ def check_disc_anchor_kernels(torch, cfg, dev, rows):
         *args, mask, exp2=exp2), reps)
     plain6 = cuda_ms(torch, lambda: zoom_dft.fused_exp_zoom_anchor_reference(
         *a6), reps)
+    ms1h = cuda_ms(torch, lambda: zoom_dft.fused_exp_zoom(*args, **high),
+                   reps)
+    ms5h = cuda_ms(torch, lambda: zoom_dft.fused_exp_zoom_disc(
+        *args, mask, **high), reps)
+    plain5h = cuda_ms(torch, lambda: zoom_dft.fused_exp_zoom_disc_reference(
+        *args, mask, **high), reps)
     print(f"same inputs: K1 {ms1:.4f} ms, K5 {ms5:.4f} ms (plain "
-          f"{plain5:.4f}), K6 {ms6:.4f} ms (plain {plain6:.4f})")
+          f"{plain5:.4f}), K6 {ms6:.4f} ms (plain {plain6:.4f}); at high: "
+          f"K1 {ms1h:.4f} ms, K5 {ms5h:.4f} ms (plain {plain5h:.4f})")
     live = zoom_dft.disc_live_rows(mask, n, ncols)
     elems = int(np.sum(live[:, 1] - live[:, 0])) * zoom_dft.N_TILE
     ng = astar.shape[0]
@@ -358,24 +444,45 @@ def check_disc_anchor_kernels(torch, cfg, dev, rows):
     k5 = dict(name="fused_exp_zoom_disc (K5)", route="cuda",
               source=ZOOM_SRC, replaces=f"{JAX_ZOOM}:341",
               max_abs_err=err5, ms=ms5, plain_ms=plain5,
-              **roofline("K5", *zoom_work(B, ndir, n, ncols, nl, m2, elems)))
+              **roofline("K5", **zoom_work(B, ndir, n, ncols, nl, m2,
+                                           "highest", elems)))
+    k5h = dict(name="fused_exp_zoom_disc@high (K5, 3-pass bf16 tensor "
+               "cores)", route="cuda", source=TC_SRC,
+               replaces=f"{JAX_ZOOM}:341", max_abs_err=err5h, ms=ms5h,
+               plain_ms=plain5h,
+               **roofline("K5 high", **zoom_work(B, ndir, n, ncols, nl, m2,
+                                                 "high", elems)))
+    # per group and direction one exponential and its power sums (deg1
+    # products and sums, the shift), per wavelength deg1 products and sums
     k6 = dict(name="fused_exp_zoom_anchor (K6 _kernel_anchor)",
               route="cuda", source=ANCHOR_SRC, replaces=f"{JAX_ZOOM}:206",
               max_abs_err=err6, ms=ms6, plain_ms=plain6,
-              **roofline("K6", 2.0 * B * nl * m2 * n * ncols,
-                         float(B * n * ncols * (ng * ndir * (2 * deg1 + 2)
-                                                + nl * 2 * deg1)),
-                         4.0 * (B * ndir * n * ncols + n * ncols
-                                + nl * m2 * n + B * ndir + ng + nl * deg1
-                                + B * nl * m2 * ncols)))
+              **roofline("K6", 4.0 * (B * ndir * n * ncols + n * ncols
+                                      + nl * m2 * n + B * ndir + ng
+                                      + nl * deg1 + B * nl * m2 * ncols),
+                         fp32=2.0 * B * nl * m2 * n * ncols
+                         + float(B * n * ncols * (ng * ndir * (2 * deg1 + 1)
+                                                  + nl * 2 * deg1)),
+                         exps=float(B * n * ncols * ng * ndir)))
     del args, a6, base, a2
     torch.cuda.empty_cache()
-    return k5, k6
+    return k5, k6, k5h
 
 
 def no_disc_or_anchor(counts, label):
-    if counts["zoom_dft_disc"] or counts["zoom_dft_anchor"]:
+    if (counts["zoom_dft_disc"] or counts["zoom_dft_tc_disc"]
+            or counts["zoom_dft_anchor"]):
         raise RuntimeError(f"{label} launched K5 or K6: {counts}")
+
+
+def on_one_body(counts, precision, label):
+    """A night at "high" launches the tensor-core body and never the FMA
+    body; one at "highest" the other way round."""
+    fma = sum(counts[k] for k in FMA_ZOOM)
+    tc = sum(v for k, v in counts.items() if k.startswith("zoom_dft_tc"))
+    if (precision == "high" and fma) or (precision == "highest" and tc):
+        raise RuntimeError(f"{label} at {precision} launched the other "
+                           f"body: {counts}")
 
 
 def check_plan(rows, night, golden):
@@ -414,11 +521,45 @@ def warmed_nights(process_batch, rows, night, card, label, n=5):
           f" s; median {dt:.4f} s, {len(rows[0]) / dt:.2f} rows/s ({card})")
 
 
+def zoom_key(cfg, kind=""):
+    """The launch counter of the zoom body ``cfg.zoom_precision`` runs:
+    ``kind`` "" (K1), "_rowsplit" (K3) or "_disc" (K5)."""
+    return ("zoom_dft_tc" if cfg.zoom_precision == "high"
+            else "zoom_dft") + kind
+
+
+def cli_block(cfg):
+    """The CLI's result block (1.0", 0.7, 25 m at 500/700/900 nm), counted;
+    it must be exact and run K3 on the body of ``cfg.zoom_precision``."""
+    from muse_psfr_tpu_torch.fit.moffat_fit import fit_moffat_cube_host64
+    from muse_psfr_tpu_torch.ops import _build
+    from muse_psfr_tpu_torch.parallel.batch import process_batch
+    lb3 = np.array([500.0, 700.0, 900.0])
+    _build.reset_launch_counts()
+    _, mean3, _ = process_batch([1.0], [0.7], [25.0], np.ones((1, 4)),
+                                lbda=lb3, npsflin=1, cfg=cfg, chunk=1,
+                                device="cuda")
+    counts = _build.launch_counts()
+    fm = fit_moffat_cube_host64(mean3)
+    block = ("FWHM " + " ".join("%.2f" % v
+                                for v in fm["fwhm"][:, 0] * cfg.pixscale),
+             "BETA " + " ".join("%.2f" % v for v in fm["n"]))
+    print(f"CLI block at zoom_precision={cfg.zoom_precision}:\n"
+          "LBDA 5000 7000 9000\n" + "\n".join(block))
+    print(f"CLI block launches {counts}")
+    if block != CLI_BLOCK:
+        raise RuntimeError(f"CLI block {block} != {CLI_BLOCK}")
+    if counts[zoom_key(cfg, "_rowsplit")] < 1:
+        raise RuntimeError(f"K3 never ran on the CLI block: {counts}")
+    no_disc_or_anchor(counts, "the CLI block")
+    on_one_body(counts, cfg.zoom_precision, "the CLI block")
+    return counts
+
+
 def main_path(torch, cfg, rows, card):
     """The 1-direction bench night through the auto planner, counted;
     golden row; CLI block (counted).  Returns the counts of the night and
-    of the CLI block, and the night's arguments."""
-    from muse_psfr_tpu_torch.fit.moffat_fit import fit_moffat_cube_host64
+    of the CLI block, the night's arguments and its mean PSF."""
     from muse_psfr_tpu_torch.ops import _build
     from muse_psfr_tpu_torch.parallel.batch import (process_batch,
                                                     reconstruct_batch)
@@ -428,11 +569,13 @@ def main_path(torch, cfg, rows, card):
     _build.reset_launch_counts()
     fit, psf_mean, fit_mean = process_batch(*rows, **night)
     counts = _build.launch_counts()
-    print(f"1-direction night: process_batch on {len(rows[0])} rows x "
-          f"{LBDA.size} wavelengths, launches {counts}")
-    if counts["zoom_dft"] < 1 or counts["conv_dft"] < 1:
+    print(f"1-direction night at zoom_precision={cfg.zoom_precision}: "
+          f"process_batch on {len(rows[0])} rows x {LBDA.size} wavelengths, "
+          f"launches {counts}")
+    if counts[zoom_key(cfg)] < 1 or counts["conv_dft"] < 1:
         raise RuntimeError(f"a kernel of the night never ran: {counts}")
     no_disc_or_anchor(counts, "the 1-direction night")
+    on_one_body(counts, cfg.zoom_precision, "the 1-direction night")
     unpacked = check_fits(fit, len(rows[0]), psf_mean, fit_mean)
     print(f"all {unpacked['ok'].size} plane fits finite and converged; "
           f"fwhm range {unpacked['fwhm'][..., 0].min() * cfg.pixscale:.3f}"
@@ -449,25 +592,31 @@ def main_path(torch, cfg, rows, card):
           "float64 oracle (limit 1e-5)")
     if not rms <= 1e-5:
         raise RuntimeError(f"golden rms {rms} over the 1e-5 budget")
+    return counts, cli_block(cfg), night, psf_mean
 
-    lb3 = np.array([500.0, 700.0, 900.0])
+
+def highest_night(cfg, rows, card, high_mean):
+    """The 1-direction night at zoom_precision="highest" (the FMA body),
+    counted, against the same night at "high"; then the CLI block at
+    "highest"."""
+    from muse_psfr_tpu_torch.ops import _build
+    from muse_psfr_tpu_torch.parallel.batch import process_batch
+    night = dict(lbda=LBDA, npsflin=1, cfg=cfg, chunk=50, device="cuda")
     _build.reset_launch_counts()
-    _, mean3, _ = process_batch([1.0], [0.7], [25.0], np.ones((1, 4)),
-                                lbda=lb3, npsflin=1, cfg=cfg, chunk=1,
-                                device="cuda")
-    cli_counts = _build.launch_counts()
-    fm = fit_moffat_cube_host64(mean3)
-    block = ("FWHM " + " ".join("%.2f" % v
-                                for v in fm["fwhm"][:, 0] * cfg.pixscale),
-             "BETA " + " ".join("%.2f" % v for v in fm["n"]))
-    print("LBDA 5000 7000 9000\n" + "\n".join(block))
-    print(f"CLI block launches {cli_counts}")
-    if block != CLI_BLOCK:
-        raise RuntimeError(f"CLI block {block} != {CLI_BLOCK}")
-    if cli_counts["zoom_dft_rowsplit"] < 1:
-        raise RuntimeError(f"K3 never ran on the CLI block: {cli_counts}")
-    no_disc_or_anchor(cli_counts, "the CLI block")
-    return counts, cli_counts, night
+    fit, psf_mean, fit_mean = process_batch(*rows, **night)
+    counts = _build.launch_counts()
+    rel = float(np.abs(high_mean - psf_mean).max() / np.abs(psf_mean).max())
+    print(f"1-direction night at highest: launches {counts}; the night at "
+          f"high departs by {rel:.3e} relative max-abs (limit 1e-5)")
+    if counts["zoom_dft"] < 1:
+        raise RuntimeError(f"the FMA body never ran: {counts}")
+    on_one_body(counts, "highest", "the 1-direction night")
+    check_fits(fit, len(rows[0]), psf_mean, fit_mean)
+    if not rel <= 1e-5:
+        raise RuntimeError(f"high and highest nights differ by {rel}")
+    warmed_nights(process_batch, rows, night, card,
+                  "1-direction night at highest", n=3)
+    return counts, cli_block(cfg)
 
 
 def ndir9_path(torch, cfg, rows, card, guard_log):
@@ -483,12 +632,13 @@ def ndir9_path(torch, cfg, rows, card, guard_log):
     _build.reset_launch_counts()
     fit, psf_mean, fit_mean = process_batch(*rows, **night)
     counts = _build.launch_counts()
-    print(f"9-direction night: process_batch on {len(rows[0])} rows x "
-          f"{LBDA.size} wavelengths, launches {counts}; window-guard "
-          f"trips: {len(guard_log.trips)}")
-    if counts["zoom_dft"] < 1 or counts["conv_dft"] < 1:
+    print(f"9-direction night at zoom_precision={cfg.zoom_precision}: "
+          f"process_batch on {len(rows[0])} rows x {LBDA.size} wavelengths, "
+          f"launches {counts}; window-guard trips: {len(guard_log.trips)}")
+    if counts[zoom_key(cfg)] < 1 or counts["conv_dft"] < 1:
         raise RuntimeError(f"a kernel of the night never ran: {counts}")
     no_disc_or_anchor(counts, "the 9-direction night")
+    on_one_body(counts, cfg.zoom_precision, "the 9-direction night")
     got = check_fits(fit, len(rows[0]), psf_mean, fit_mean)
 
     full = process_batch(*rows, **night, _force_full=True)
@@ -509,9 +659,45 @@ def ndir9_path(torch, cfg, rows, card, guard_log):
     return counts, night, (psf_mean, got)
 
 
-def disc_night(cfg, rows, card, exact):
+def compare_nights(label, got_mean, got_fit, want_mean, want_fit):
+    """Mean PSF relative max-abs <= 1e-5 and per-row FWHM/beta <= 1e-3."""
+    rel = float(np.abs(got_mean - want_mean).max() / np.abs(want_mean).max())
+    rfw = np.abs(got_fit["fwhm"] - want_fit["fwhm"]) / np.abs(want_fit["fwhm"])
+    rn = np.abs(got_fit["n"] - want_fit["n"]) / np.abs(want_fit["n"])
+    print(f"{label}: mean PSF relative max-abs {rel:.3e} (limit 1e-5); "
+          f"per-row FWHM {float(rfw.max()):.3e}, beta {float(rn.max()):.3e} "
+          f"relative (limit 1e-3; median {float(np.median(rfw)):.3e}, "
+          f"{float(np.median(rn)):.3e})")
+    if not (rel <= 1e-5 and rfw.max() <= 1e-3 and rn.max() <= 1e-3):
+        raise RuntimeError(f"{label}: the nights depart")
+
+
+def ndir9_highest(cfg, rows, card, high):
+    """The 9-direction night at zoom_precision="highest" (the FMA body),
+    counted, against the same night at "high"."""
+    from muse_psfr_tpu_torch.ops import _build
+    from muse_psfr_tpu_torch.parallel.batch import process_batch
+    night = dict(lbda=LBDA, npsflin=3, cfg=cfg, chunk=44, device="cuda")
+    _build.reset_launch_counts()
+    fit, psf_mean, fit_mean = process_batch(*rows, **night)
+    counts = _build.launch_counts()
+    print(f"9-direction night at highest: launches {counts}")
+    if counts["zoom_dft"] < 1:
+        raise RuntimeError(f"the FMA body never ran: {counts}")
+    no_disc_or_anchor(counts, "the 9-direction night at highest")
+    on_one_body(counts, "highest", "the 9-direction night")
+    got = check_fits(fit, len(rows[0]), psf_mean, fit_mean)
+    compare_nights("9-direction night at high against highest", high[0],
+                   high[1], psf_mean, got)
+    warmed_nights(process_batch, rows, night, card,
+                  "9-direction night at highest", n=3)
+    return counts, (psf_mean, got)
+
+
+def disc_night(cfg, rows, card, exact, warm=5):
     """The 9-direction night with the disc skip on: K5 on the full-window
-    chunks, the mean PSF against the exact night's."""
+    chunks, on the body of ``cfg.zoom_precision``, the mean PSF against
+    the exact night's at the same precision."""
     from muse_psfr_tpu_torch.ops import _build
     from muse_psfr_tpu_torch.parallel.batch import process_batch
     night = dict(lbda=LBDA, npsflin=3, cfg=cfg.with_(disc_skip=True),
@@ -521,15 +707,18 @@ def disc_night(cfg, rows, card, exact):
     fit, psf_mean, fit_mean = process_batch(*rows, **night)
     counts = _build.launch_counts()
     rel = float(np.abs(psf_mean - exact[0]).max() / np.abs(exact[0]).max())
-    print(f"9-direction night, disc_skip=True: launches {counts}; mean PSF "
-          f"relative max-abs {rel:.3e} from the exact night (limit 1e-6)")
-    if counts["zoom_dft_disc"] < 1 or counts["zoom_dft_anchor"]:
+    print(f"9-direction night, disc_skip=True, zoom_precision="
+          f"{cfg.zoom_precision}: launches {counts}; mean PSF relative "
+          f"max-abs {rel:.3e} from the exact night (limit 1e-6)")
+    if counts[zoom_key(cfg, "_disc")] < 1 or counts["zoom_dft_anchor"]:
         raise RuntimeError(f"K5 did not run on the disc night: {counts}")
+    on_one_body(counts, cfg.zoom_precision, "the disc night")
     check_fits(fit, len(rows[0]), psf_mean, fit_mean)
     if not rel <= 1e-6:
         raise RuntimeError(f"the disc night departs from the exact: {rel}")
-    warmed_nights(process_batch, rows, night, card,
-                  "9-direction night, disc_skip=True")
+    if warm:
+        warmed_nights(process_batch, rows, night, card,
+                      "9-direction night, disc_skip=True", n=warm)
     return counts
 
 
@@ -665,18 +854,20 @@ def main(argv):
     guard_log = GuardLog()
     logging.getLogger("muse_psfr.batch").addHandler(guard_log)
 
-    cfg = GalacsiConfig(use_fft=False)
+    cfg = GalacsiConfig(use_fft=False)          # zoom_precision "high"
+    fma = cfg.with_(zoom_precision="highest")
     rows = build_rows(100)
-    check_zoom_kernel(torch, cfg, dev, rows, 2, LBDA[:12])
+    # the FMA body ("highest"), as it ran before "high" was ported
+    check_zoom_kernel(torch, fma, dev, rows, 2, LBDA[:12])
     k1 = dict(name="fused_exp_zoom", replaces=f"{JAX_ZOOM}:124",
-              **check_zoom_kernel(torch, cfg, dev, rows, 50, LBDA))
+              **check_zoom_kernel(torch, fma, dev, rows, 50, LBDA))
     k1_9 = dict(name="fused_exp_zoom@ndir9 (K1' _kernel, K4 "
                 "_kernel_dirblock)", replaces=f"{JAX_ZOOM}:44,85",
-                **check_zoom_kernel(torch, cfg, dev, rows, 4, LBDA,
+                **check_zoom_kernel(torch, fma, dev, rows, 4, LBDA,
                                     npsflin=3, label="K1 ndir=9"))
     k3 = dict(name="fused_exp_zoom_rowsplit (K3 _kernel_rowacc)",
               replaces=f"{JAX_ZOOM}:145",
-              **check_zoom_kernel(torch, cfg, dev, rows, 4, LBDA,
+              **check_zoom_kernel(torch, fma, dev, rows, 4, LBDA,
                                   npsflin=3, row_splits=2, label="K3"))
     lb3 = np.array([500.0, 700.0, 900.0])
     r_cli = _zoom_row_splits(1 * 3 * 6, 512,
@@ -685,30 +876,60 @@ def main(argv):
     k3_cli = dict(name="fused_exp_zoom_rowsplit@cli (K3, 1 row x 3 "
                   f"wavelengths, S=256, R={r_cli})",
                   replaces=f"{JAX_ZOOM}:145",
-                  **check_zoom_kernel(torch, cfg.with_(otf_support=256),
+                  **check_zoom_kernel(torch, fma.with_(otf_support=256),
                                       dev, rows, 1, lb3, row_splits=r_cli,
                                       label="K3 CLI"))
+    # the tensor-core body ("high", the default) at the same shapes
+    t1 = dict(name="fused_exp_zoom@high (K1 _kernel_dirfull, 3-pass bf16 "
+              "tensor cores)", replaces=f"{JAX_ZOOM}:124,179",
+              **check_zoom_kernel(torch, cfg, dev, rows, 50, LBDA,
+                                  label="K1 high"))
+    t1_9 = dict(name="fused_exp_zoom@high,ndir9 (K1' _kernel, K4 "
+                "_kernel_dirblock)", replaces=f"{JAX_ZOOM}:44,85,179",
+                **check_zoom_kernel(torch, cfg, dev, rows, 4, LBDA,
+                                    npsflin=3, label="K1 high ndir=9"))
+    t3 = dict(name="fused_exp_zoom_rowsplit@high (K3 _kernel_rowacc)",
+              replaces=f"{JAX_ZOOM}:145,179",
+              **check_zoom_kernel(torch, cfg, dev, rows, 4, LBDA,
+                                  npsflin=3, row_splits=2, label="K3 high"))
+    t3_cli = dict(name="fused_exp_zoom_rowsplit@high,cli (K3, 1 row x 3 "
+                  f"wavelengths, S=256, R={r_cli})",
+                  replaces=f"{JAX_ZOOM}:145,179",
+                  **check_zoom_kernel(torch, cfg.with_(otf_support=256),
+                                      dev, rows, 1, lb3, row_splits=r_cli,
+                                      label="K3 high CLI"))
     k2 = check_conv_kernel(torch, cfg, dev, rows)
-    k5, k6 = check_disc_anchor_kernels(torch, cfg, dev, rows)
+    k5, k6, t5 = check_disc_anchor_kernels(torch, cfg, dev, rows)
 
-    counts, cli_counts, night = main_path(torch, cfg, rows, card)
+    counts, cli_counts, night, mean1 = main_path(torch, cfg, rows, card)
+    counts_fma, cli_fma = highest_night(fma, rows, card, mean1)
     counts9, night9, exact9 = ndir9_path(torch, cfg, rows, card, guard_log)
+    counts9_fma, exact9_fma = ndir9_highest(fma, rows, card, exact9)
     counts_disc = disc_night(cfg, rows, card, exact9)
+    counts_disc_fma = disc_night(fma, rows, card, exact9_fma, warm=0)
     counts_anchor = anchor_night(cfg, rows, card, guard_log, exact9)
     forced_redo(cfg, guard_log)
-    k1["launches"] = counts["zoom_dft"]
-    k2["launches"] = counts["conv_dft"]
-    k1_9["launches"] = counts9["zoom_dft"]
-    k3["launches"] = k3_cli["launches"] = cli_counts["zoom_dft_rowsplit"]
-    k5["launches"] = counts_disc["zoom_dft_disc"]
+    k1["launches"] = counts_fma["zoom_dft"]
+    k1_9["launches"] = counts9_fma["zoom_dft"]
+    k3["launches"] = k3_cli["launches"] = cli_fma["zoom_dft_rowsplit"]
+    k5["launches"] = counts_disc_fma["zoom_dft_disc"]
     k6["launches"] = counts_anchor["zoom_dft_anchor"]
+    k2["launches"] = counts["conv_dft"]
+    t1["launches"] = counts["zoom_dft_tc"]
+    t1_9["launches"] = counts9["zoom_dft_tc"]
+    t3["launches"] = t3_cli["launches"] = cli_counts["zoom_dft_tc_rowsplit"]
+    t5["launches"] = counts_disc["zoom_dft_tc_disc"]
+    kernels = [k1, k1_9, k3, k3_cli, k2, k5, k6, t1, t1_9, t3, t3_cli, t5]
+    idle = [k["name"] for k in kernels if k["launches"] < 1]
+    if idle:
+        raise RuntimeError(f"never launched on their paths: {idle}")
     if args.profile:
         profile_night(torch, rows, night, args.profile)
     if args.profile_ndir9:
         profile_night(torch, rows, night9, args.profile_ndir9)
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k1_9, k3, k3_cli, k2, k5, k6]}))
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

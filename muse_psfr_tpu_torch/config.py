@@ -14,10 +14,14 @@ convolution-chain kernel, ``ops/conv_dft.py``), and ``pallas_disc_skip``/
 knobs that only size or lay out TPU VMEM grid steps or vector-register
 lanes are listed in :data:`TPU_LAYOUT_ONLY`.
 
-The JAX ``*_precision`` fields choose TPU matmul pass counts.  The port
-runs every contraction in full float32 (TF32 off, see ``utils/device.py``),
-which meets both accepted settings, "highest" and "high", so it has no
-such choice yet and lists them in :data:`NOT_YET_PORTED` too.
+``zoom_precision`` chooses how the fused zoom kernels contract on the
+card (:data:`ZOOM_PRECISIONS`): "high" (the JAX default) runs the 3-pass
+bf16 split ``hi*hi + hi*lo + lo*hi`` with float32 accumulation on tensor
+cores, "highest" full float32 FMAs.  The JAX package's "default" (one bf16
+pass) is outside the accuracy budget (``docs/precision.md``) and raises.
+The other two ``*_precision`` fields are not ported yet
+(:data:`NOT_YET_PORTED`): every other contraction runs in full float32
+(TF32 off, see ``utils/device.py``).
 """
 
 from dataclasses import dataclass, replace
@@ -37,7 +41,10 @@ TPU_LAYOUT_ONLY = ("pallas_lambda_chunk", "pallas_dir_block",
 
 #: JAX config fields with no counterpart yet: they choose TPU matmul pass
 #: counts
-NOT_YET_PORTED = ("matmul_precision", "zoom_precision", "conv_precision")
+NOT_YET_PORTED = ("matmul_precision", "conv_precision")
+
+#: accepted values of ``zoom_precision``
+ZOOM_PRECISIONS = ("high", "highest")
 
 
 @dataclass(frozen=True)
@@ -82,6 +89,14 @@ class GalacsiConfig:
                                # (exact, FFT-free), which also routes the
                                # final convolutions through the fused
                                # conv-chain kernel
+    zoom_precision: str = "high"  # contraction of the fused zoom kernels
+                               # (K1/K3/K5) on the card: "high" = 3-pass
+                               # bf16 (hi*hi + hi*lo + lo*hi, float32
+                               # accumulation) on tensor cores, "highest" =
+                               # float32 FMAs.  Read only where the kernels
+                               # run: a CPU night contracts in full
+                               # precision, as the JAX package's night off
+                               # the TPU does
     zoom_exp2: bool = True     # damping as exp2(alpha*log2e*D + log2 w)
                                # instead of exp(alpha*D)*w (same math up
                                # to argument rounding)
@@ -135,6 +150,13 @@ class GalacsiConfig:
                                # (otf/psf.py:_disc_block_mask); a no-op
                                # on windows inside the disc
     disc_min_ndir: int = 4     # fewest directions for the disc skip
+
+    def __post_init__(self):
+        if self.zoom_precision not in ZOOM_PRECISIONS:
+            raise ValueError(
+                f"zoom_precision must be one of {ZOOM_PRECISIONS}, got "
+                f"{self.zoom_precision!r} (one bf16 pass is outside the "
+                "accuracy budget)")
 
     # --- derived ------------------------------------------------------------
     @property

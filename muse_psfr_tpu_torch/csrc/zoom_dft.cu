@@ -19,12 +19,11 @@
 // N = 1280, ncols = 768 under the symmetry fold, 35 wavelengths) one row
 // is 2*35*160*1280*768 = 11 GFLOP of contraction against ~140 MB of D
 // re-read (35 wavelengths x 3.9 MB) -- ~80 FLOP per byte, above the
-// card's fp32 ridge.  This first version is the simple one: plain fp32
-// FMAs from shared-memory tiles, a (160 x 64) accumulator tile spread over
-// 256 threads' registers (10 x 4 each).  True fp32 meets both TPU
-// settings of the contraction (zoom_precision "highest" and the 3-pass
-// "high").  Tensor cores (wgmma with a 3-pass bf16/tf32 split, the
-// analogue of "high") and TMA staging are later work.
+// card's fp32 ridge.  This body is the simple one: plain fp32 FMAs from
+// shared-memory tiles, a (160 x 64) accumulator tile spread over 256
+// threads' registers (10 x 4 each).  It runs zoom_precision "highest"
+// (true fp32, the TPU's 6-pass); "high", the 3-pass bf16 split, runs on
+// tensor cores in zoom_dft_tc.cu.
 //
 // Grid: (column tiles x output-row blocks x row slices, wavelengths,
 // rows).  The damping is exp(alpha*D)*w, or with use_exp2 != 0
@@ -172,6 +171,17 @@ __global__ void sum_row_slices(const float* __restrict__ ws,  // (R, total)
 }
 
 }  // namespace
+
+// K3's ordered sum of R partial slabs of `total` floats, also used by the
+// tensor-core body (zoom_dft_tc.cu); returns cudaGetLastError().
+extern "C" int muse_sum_row_slices(const float* ws, float* u, long long total,
+                                   int R, void* stream) {
+  const long long want = (total + NT - 1) / NT;
+  const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
+  sum_row_slices<<<blocks, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      ws, u, total, R);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Launches K1 (row_splits == 1: writes u, ws is unused) or K3 (the R row
 // slices into the workspace ws of R * B * nl * m2 * ncols floats, then

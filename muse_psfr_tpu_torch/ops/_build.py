@@ -35,6 +35,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = {"zoom_dft": ("zoom_dft", "LAUNCHES"),
            "zoom_dft_rowsplit": ("zoom_dft", "ROWSPLIT_LAUNCHES"),
            "zoom_dft_disc": ("zoom_dft", "DISC_LAUNCHES"),
+           "zoom_dft_tc": ("zoom_dft", "TC_LAUNCHES"),
+           "zoom_dft_tc_rowsplit": ("zoom_dft", "TC_ROWSPLIT_LAUNCHES"),
+           "zoom_dft_tc_disc": ("zoom_dft", "TC_DISC_LAUNCHES"),
            "zoom_dft_anchor": ("zoom_dft", "ANCHOR_LAUNCHES"),
            "conv_dft": ("conv_dft", "LAUNCHES")}
 
@@ -49,6 +52,10 @@ _SIGNATURES = {
     # dphi, dl, a2, alpha, w, live, ws, u, 3 dphi strides, B, ndir, n,
     # ncols, nl, m2, row_splits, exp2, stream
     "muse_fused_exp_zoom": [_P] * 8 + [ctypes.c_longlong] * 3 + [_I] * 8
+    + [_P],
+    # dphi, dl, a2_hi, a2_lo, alpha, w, live, ws, u, 3 dphi strides, B,
+    # ndir, n, ncols, nl, m2, row_splits, exp2, stream
+    "muse_fused_exp_zoom_tc": [_P] * 9 + [ctypes.c_longlong] * 3 + [_I] * 8
     + [_P],
     # dphi, dl, a2, centre, astar, coef, u, 3 dphi strides, B, ndir, n,
     # ncols, nl, m2, group, deg1, stream

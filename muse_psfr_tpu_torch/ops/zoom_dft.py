@@ -27,25 +27,40 @@ its live rows, from a table the wrapper derives from the 128 x 128 block
 mask, in the same launch.  :func:`fused_exp_zoom_anchor` (K6,
 ``cfg.zoom_anchor``, ``csrc/zoom_anchor.cu``) evaluates the damping of a
 group of wavelengths from shared power sums of one anchor exponential.
+
+``precision`` (``cfg.zoom_precision``) chooses the contraction of K1, K3
+and K5, as ``_mxu_contract`` does on the TPU: "high" is the 3-pass bf16
+split ``a_hi@g_hi + a_hi@g_lo + a_lo@g_hi`` with float32 accumulation, on
+tensor cores (``csrc/zoom_dft_tc.cu``); "highest" is full float32, on the
+FMA body (``csrc/zoom_dft.cu``).  K6 always contracts in full float32,
+which is more exact than "high".
 """
 
 import numpy as np
 import torch
 
 from . import _build
+from ..config import ZOOM_PRECISIONS
 from ..utils.device import host_const
 
-#: successful launches of the CUDA kernel with one row slice (K1), with
-#: R > 1 row slices and the ordered sum of their partials (K3), with the
-#: diffraction-disc skip (K5, any R), and of the anchored-Taylor kernel
+#: successful launches of the FMA body ("highest") with one row slice
+#: (K1), with R > 1 row slices and the ordered sum of their partials (K3),
+#: with the diffraction-disc skip (K5, any R); of the tensor-core body
+#: ("high") in the same three forms; and of the anchored-Taylor kernel
 #: (K6); see ops/_build.py
 LAUNCHES = 0
 ROWSPLIT_LAUNCHES = 0
 DISC_LAUNCHES = 0
+TC_LAUNCHES = 0
+TC_ROWSPLIT_LAUNCHES = 0
+TC_DISC_LAUNCHES = 0
 ANCHOR_LAUNCHES = 0
 
-#: output rows and columns of one CUDA block (``TI``/``TJ`` of the .cu)
+#: output rows and columns of one CUDA block (``TI``/``TJ`` of both
+#: bodies, csrc/zoom_dft.cu and csrc/zoom_dft_tc.cu)
 M_TILE, N_TILE = 160, 64
+#: contraction rows per step of the tensor-core body (``KS``)
+K_STEP = 32
 
 #: K6 limits (``KB``/``DMAX`` of csrc/zoom_anchor.cu): wavelengths per
 #: group, whose accumulators a block keeps in registers, and Taylor degree
@@ -54,8 +69,53 @@ ANCHOR_MAX_GROUP, ANCHOR_MAX_DEGREE = 8, 11
 _LOG2E = float(np.log2(np.e))
 
 
+def check_precision(precision):
+    if precision not in ZOOM_PRECISIONS:
+        raise ValueError(f"unsupported zoom precision {precision!r}, "
+                         f"expected one of {ZOOM_PRECISIONS}; one bf16 pass "
+                         "is outside the accuracy budget")
+
+
+def split_bf16(x):
+    """The 3-pass split of ``x``: ``hi = bf16(x)``, ``lo = bf16(x - hi)``
+    (round to nearest even, as the kernel's ``__float2bfloat16_rn``), with
+    ``lo = 0`` where ``hi`` is infinite, so that no NaN is made."""
+    hi = x.to(torch.bfloat16)
+    lo = torch.where(torch.isinf(hi), torch.zeros_like(x),
+                     x - hi.to(x.dtype)).to(torch.bfloat16)
+    return hi, lo
+
+
+def contract(a2, g, precision="highest"):
+    """``a2 @ g`` at ``precision``: full precision, or for "high" the sum
+    ``a_hi@g_hi + a_hi@g_lo + a_lo@g_hi`` of three matmuls of bf16 values
+    (``_mxu_contract`` of the JAX package).
+
+    Each product of two bf16 values is exact in float32, so "high" is the
+    tensor-core kernel's arithmetic up to the order of the float32 sums,
+    and it takes the kernel's order of steps: the three passes over each
+    :data:`K_STEP` contraction rows, then a running sum over the steps.
+    On the production window, one float32 matmul over all 1280 rows lies
+    up to ~7e-6 of max|U| from the exact sum of its products (as does the
+    FMA body, which sums in the same order), more than the 2e-6 the
+    kernel is held to, while the stepped sums lie within ~5e-7 of it
+    (measured on an NVIDIA H100)."""
+    if precision == "highest":
+        return torch.matmul(a2, g)
+    a_hi, a_lo = split_bf16(a2)
+    g_hi, g_lo = split_bf16(g)
+    u = None
+    for k in range(0, g.shape[-2], K_STEP):
+        ah, al = (p[..., k:k + K_STEP].to(g.dtype) for p in (a_hi, a_lo))
+        gh, gl = (p[..., k:k + K_STEP, :].to(g.dtype) for p in (g_hi, g_lo))
+        part = (torch.matmul(ah, gh) + torch.matmul(ah, gl)
+                + torch.matmul(al, gh))
+        u = part if u is None else u + part
+    return u
+
+
 def fused_exp_zoom_reference(dphi, dl, a2, alpha, w, exp2=False,
-                             row_splits=1):
+                             row_splits=1, precision="highest"):
     """Plain PyTorch K1/K3: ``U[b, l] = A2[l] @ (sum_d exp(alpha[l] *
     D[b, d]) * w[b, l, d] * dl)``.
 
@@ -63,8 +123,10 @@ def fused_exp_zoom_reference(dphi, dl, a2, alpha, w, exp2=False,
     w (B, nl, ndir).  Returns (B, nl, 2M, ncols).  ``exp2=True`` evaluates
     the damping as ``exp2(alpha*log2(e)*D + log2 w)`` (cfg.zoom_exp2): the
     same math up to argument rounding.  ``row_splits=R`` sums the R
-    partial contractions over rows ``[r*N/R, (r+1)*N/R)`` in order.
+    partial contractions over rows ``[r*N/R, (r+1)*N/R)`` in order, each
+    at ``precision`` (:func:`contract`).
     """
+    check_precision(precision)
     if exp2:
         al = (alpha * _LOG2E)[None, :, None, None]
         lw = torch.log2(w)
@@ -83,8 +145,8 @@ def fused_exp_zoom_reference(dphi, dl, a2, alpha, w, exp2=False,
     h = n // row_splits
     u = None
     for r in range(row_splits):
-        part = torch.matmul(a2[None, :, :, r * h:(r + 1) * h],
-                            g[:, :, r * h:(r + 1) * h])
+        part = contract(a2[None, :, :, r * h:(r + 1) * h],
+                        g[:, :, r * h:(r + 1) * h], precision)
         u = part if u is None else u + part
     return u
 
@@ -96,11 +158,14 @@ def _check_splits(n, row_splits):
                          "contraction rows into slices of a multiple of 32")
 
 
-def _launch(name, dphi, dl, a2, alpha, w, exp2, row_splits, live=None):
+def _launch(name, dphi, dl, a2, alpha, w, exp2, row_splits, precision,
+            live=None):
     """Check the operands and launch K1/K3 (``live`` None) or K5 (``live``
-    the (ncols/64, 2) int32 device table of live rows per column tile)."""
+    the (ncols/64, 2) int32 device table of live rows per column tile) on
+    the body of ``precision``."""
     B, ndir, n, ncols = dphi.shape
     nl, m2 = a2.shape[0], a2.shape[1]
+    check_precision(precision)
     _check_splits(n, row_splits)
     _build.check_operands(name, dphi.device, {
         "dl": (dl, (n, ncols)), "a2": (a2, (nl, m2, n)),
@@ -110,6 +175,10 @@ def _launch(name, dphi, dl, a2, alpha, w, exp2, row_splits, live=None):
                           unit_stride_only=True)
     if nl > 65535 or B > 65535:
         raise ValueError(f"{name}: grid too large (nl={nl}, B={B})")
+    if precision == "high" and n % 8:
+        raise ValueError(f"{name}: the tensor-core body stages A2 in rows "
+                         f"of 8 bf16; {n} contraction rows are not a "
+                         "multiple of 8")
     if exp2:
         alpha = alpha * _LOG2E
         w = torch.log2(w)
@@ -119,28 +188,46 @@ def _launch(name, dphi, dl, a2, alpha, w, exp2, row_splits, live=None):
     ws = (torch.empty((row_splits,) + tuple(u.shape), dtype=torch.float32,
                       device=dphi.device) if row_splits > 1 else u)
     sb, sd, sr, _ = dphi.stride()
-    err = _build.library().muse_fused_exp_zoom(
-        dphi.data_ptr(), dl.data_ptr(), a2.data_ptr(), alpha.data_ptr(),
-        w.data_ptr(), 0 if live is None else live.data_ptr(), ws.data_ptr(),
-        u.data_ptr(), sb, sd, sr, B, ndir, n, ncols, nl, m2, row_splits,
-        int(exp2), torch.cuda.current_stream(dphi.device).cuda_stream)
+    stream = torch.cuda.current_stream(dphi.device).cuda_stream
+    live_ptr = 0 if live is None else live.data_ptr()
+    if precision == "high":
+        # A2's split depends on the wavelengths only: once per launch,
+        # never per row in the kernel
+        a2_hi, a2_lo = split_bf16(a2)
+        err = _build.library().muse_fused_exp_zoom_tc(
+            dphi.data_ptr(), dl.data_ptr(), a2_hi.data_ptr(),
+            a2_lo.data_ptr(), alpha.data_ptr(), w.data_ptr(), live_ptr,
+            ws.data_ptr(), u.data_ptr(), sb, sd, sr, B, ndir, n, ncols, nl,
+            m2, row_splits, int(exp2), stream)
+    else:
+        err = _build.library().muse_fused_exp_zoom(
+            dphi.data_ptr(), dl.data_ptr(), a2.data_ptr(), alpha.data_ptr(),
+            w.data_ptr(), live_ptr, ws.data_ptr(), u.data_ptr(), sb, sd, sr,
+            B, ndir, n, ncols, nl, m2, row_splits, int(exp2), stream)
     _build.check_launch(err, name)
     return u
 
 
-def fused_exp_zoom(dphi, dl, a2, alpha, w, exp2=False, row_splits=1):
-    """K1 (``row_splits=1``) or K3 on the tensors' device: the CUDA
-    kernels for CUDA tensors (float32 only; anything else raises),
-    :func:`fused_exp_zoom_reference` for CPU tensors.  Shapes as in the
+def fused_exp_zoom(dphi, dl, a2, alpha, w, exp2=False, row_splits=1,
+                   precision="highest"):
+    """K1 (``row_splits=1``) or K3 on the tensors' device: for CUDA
+    tensors (float32 only; anything else raises) the tensor-core kernel at
+    ``precision="high"`` or the FMA kernel at "highest", for CPU tensors
+    :func:`fused_exp_zoom_reference` at ``precision``.  Shapes as in the
     reference; every tensor contiguous except ``dphi``, which may be any
     view with unit column stride (the blue sub-window of a structure
-    function)."""
-    global LAUNCHES, ROWSPLIT_LAUNCHES
+    function).  The default "highest" is the JAX function's."""
+    global LAUNCHES, ROWSPLIT_LAUNCHES, TC_LAUNCHES, TC_ROWSPLIT_LAUNCHES
     if dphi.device.type == "cpu":
         return fused_exp_zoom_reference(dphi, dl, a2, alpha, w, exp2,
-                                        row_splits)
-    u = _launch("fused_exp_zoom", dphi, dl, a2, alpha, w, exp2, row_splits)
-    if row_splits > 1:
+                                        row_splits, precision)
+    u = _launch("fused_exp_zoom", dphi, dl, a2, alpha, w, exp2, row_splits,
+                precision)
+    if precision == "high" and row_splits > 1:
+        TC_ROWSPLIT_LAUNCHES += 1
+    elif precision == "high":
+        TC_LAUNCHES += 1
+    elif row_splits > 1:
         ROWSPLIT_LAUNCHES += 1
     else:
         LAUNCHES += 1
@@ -182,8 +269,9 @@ def disc_column_groups(block_mask, tile_j: int = 128,
 def disc_live_rows(block_mask, n: int, ncols: int, tile_j: int = 128,
                    row_block: int = 128):
     """K5's table: (ncols / 64, 2) int32 ``[lo, hi)`` contraction rows of
-    each 64-column tile of the kernel, from :func:`disc_column_groups` of
-    the (ncols / tile_j, n / row_block) mask."""
+    each 64-column tile of the kernel (both bodies tile the columns by
+    :data:`N_TILE`), from :func:`disc_column_groups` of the (ncols /
+    tile_j, n / row_block) mask."""
     mask = np.asarray(block_mask)
     if (tile_j % N_TILE or ncols % tile_j or n % row_block
             or mask.shape != (ncols // tile_j, n // row_block)):
@@ -198,7 +286,8 @@ def disc_live_rows(block_mask, n: int, ncols: int, tile_j: int = 128,
 
 
 def fused_exp_zoom_disc_reference(dphi, dl, a2, alpha, w, block_mask,
-                                  exp2=False, row_splits=1):
+                                  exp2=False, row_splits=1,
+                                  precision="highest"):
     """Plain PyTorch K5: :func:`fused_exp_zoom_reference` with ``dl``
     zeroed outside each column tile's live rows
     (:func:`disc_live_rows`), which is the restricted contraction the
@@ -210,31 +299,35 @@ def fused_exp_zoom_disc_reference(dphi, dl, a2, alpha, w, block_mask,
     tiles = live[torch.arange(ncols, device=dl.device) // N_TILE]
     keep = (rows >= tiles[:, 0]) & (rows < tiles[:, 1])  # (n, ncols)
     return fused_exp_zoom_reference(dphi, dl * keep, a2, alpha, w, exp2,
-                                    row_splits)
+                                    row_splits, precision)
 
 
 def fused_exp_zoom_disc(dphi, dl, a2, alpha, w, block_mask, exp2=False,
-                        row_splits=1):
-    """K5 on the tensors' device: K1's CUDA body with each 64-column tile
-    looping only over its live rows (intersected with its K3 row slice
-    when ``row_splits > 1``), in one launch, for CUDA tensors;
-    :func:`fused_exp_zoom_disc_reference` for CPU tensors.  Counterpart
-    of the JAX package's ``fused_exp_zoom_disc``, which runs one launch
-    per column group and concatenates; the result matches it up to
-    summation order (the skipped blocks hold ``|dl| <= 1e-12`` of its
-    peak)."""
-    global DISC_LAUNCHES
+                        row_splits=1, precision="highest"):
+    """K5 on the tensors' device: K1's CUDA body of ``precision`` with
+    each 64-column tile looping only over its live rows (intersected with
+    its K3 row slice when ``row_splits > 1``), in one launch, for CUDA
+    tensors; :func:`fused_exp_zoom_disc_reference` for CPU tensors.
+    Counterpart of the JAX package's ``fused_exp_zoom_disc``, which runs
+    one launch per column group and concatenates; the result matches it
+    up to summation order (the skipped blocks hold ``|dl| <= 1e-12`` of
+    its peak)."""
+    global DISC_LAUNCHES, TC_DISC_LAUNCHES
     if dphi.device.type == "cpu":
         return fused_exp_zoom_disc_reference(dphi, dl, a2, alpha, w,
-                                             block_mask, exp2, row_splits)
+                                             block_mask, exp2, row_splits,
+                                             precision)
     n, ncols = dphi.shape[2], dphi.shape[3]
     mask = np.ascontiguousarray(block_mask, dtype=np.int32)
     live = host_const(("disc_live", mask.tobytes(), mask.shape, n, ncols),
                       lambda: disc_live_rows(mask, n, ncols), dphi.device,
                       torch.int32)
     u = _launch("fused_exp_zoom_disc", dphi, dl, a2, alpha, w, exp2,
-                row_splits, live)
-    DISC_LAUNCHES += 1
+                row_splits, precision, live)
+    if precision == "high":
+        TC_DISC_LAUNCHES += 1
+    else:
+        DISC_LAUNCHES += 1
     return u
 
 
@@ -287,8 +380,9 @@ def fused_exp_zoom_anchor_reference(dphi, dl, a2, centre, astar, coef,
 
 
 def fused_exp_zoom_anchor(dphi, dl, a2, centre, astar, coef, group):
-    """K6 on the tensors' device: the CUDA kernel (``csrc/zoom_anchor.cu``)
-    for CUDA tensors (float32 only; groups of at most
+    """K6 on the tensors' device: the CUDA kernel (``csrc/zoom_anchor.cu``,
+    full float32 FMAs under either ``zoom_precision``: more exact than
+    "high") for CUDA tensors (float32 only; groups of at most
     :data:`ANCHOR_MAX_GROUP` wavelengths, degree at most
     :data:`ANCHOR_MAX_DEGREE`; anything else raises),
     :func:`fused_exp_zoom_anchor_reference` for CPU tensors.  Counterpart

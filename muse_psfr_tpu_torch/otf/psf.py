@@ -523,6 +523,17 @@ def _anchor_operands(alpha, k: int, degree: int, norm: float):
     return astar.contiguous(), coef.contiguous()
 
 
+def _zoom_precision(cfg: GalacsiConfig, device) -> str:
+    """The contraction precision of the fused zoom kernels for a chunk on
+    ``device``: ``cfg.zoom_precision`` on the card, where the kernels run,
+    and "highest" on the CPU.  The JAX package reads ``zoom_precision``
+    only in its Pallas path, which runs only on the TPU; off the TPU its
+    chunk contracts in full precision (XLA), and so does the port's CPU
+    chunk, which the CPU tests hold to the JAX package's."""
+    return cfg.zoom_precision if torch.device(device).type == "cuda" \
+        else "highest"
+
+
 def _psf_chunk_fused(base, lb_k, npix_k, cfg: GalacsiConfig):
     """Fused path for one wavelength chunk (counterpart of
     ``_psf_chunk_pallas``): K1 builds the direction-averaged system OTF
@@ -536,7 +547,8 @@ def _psf_chunk_fused(base, lb_k, npix_k, cfg: GalacsiConfig):
     normaliser exactly 1, so the weights fold into the coefficients), one
     exponential per direction and wavelength group.  ``cfg.disc_skip`` at
     ``ndir >= cfg.disc_min_ndir`` runs K5 where the window has dead
-    diffraction blocks (:func:`_disc_block_mask`).
+    diffraction blocks (:func:`_disc_block_mask`).  K1, K3 and K5 contract
+    at :func:`_zoom_precision` (K6 always in full float32).
 
     ``base``: (B, ndir, rows, cols) windowed structure function, which
     may be a strided view (the blue sub-window); ``lb_k``/``npix_k``: (k,)
@@ -567,14 +579,13 @@ def _psf_chunk_fused(base, lb_k, npix_k, cfg: GalacsiConfig):
             splits = _zoom_row_splits(n_blocks, n, sms)
         msk = (_disc_block_mask(cfg)
                if cfg.disc_skip and ndir >= cfg.disc_min_ndir else None)
+        kw = dict(exp2=cfg.zoom_exp2, row_splits=splits,
+                  precision=_zoom_precision(cfg, base.device))
         if msk is not None:
             u = zoom_dft.fused_exp_zoom_disc(base, dl, a2, alpha, w, msk,
-                                             exp2=cfg.zoom_exp2,
-                                             row_splits=splits)
+                                             **kw)
         else:
-            u = zoom_dft.fused_exp_zoom(base, dl, a2, alpha, w,
-                                        exp2=cfg.zoom_exp2,
-                                        row_splits=splits)
+            u = zoom_dft.fused_exp_zoom(base, dl, a2, alpha, w, **kw)
     m = 2 * nout                                          # u: (B, k, 4n, cols)
     p = (torch.matmul(u[:, :, :m], ar2.transpose(-1, -2))
          - torch.matmul(u[:, :, m:], ai2.transpose(-1, -2)))   # (B, k, m, m)

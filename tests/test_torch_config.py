@@ -1,7 +1,7 @@
 """The PyTorch port's GalacsiConfig against the JAX package's, field for
 field: every JAX field is ported with an equal default, renamed, or listed
 in TPU_LAYOUT_ONLY or NOT_YET_PORTED, and the derived grid properties
-agree."""
+agree; zoom_precision takes "high" and "highest" only."""
 
 import dataclasses
 
@@ -40,8 +40,7 @@ def test_rename_map_and_not_yet_ported_name_jax_fields():
                             "pallas_disc_min_ndir": "disc_min_ndir"}
     assert set(tcfg.RENAMED) <= set(jax_fields)
     assert set(tcfg.NOT_YET_PORTED) <= set(jax_fields)
-    assert set(tcfg.NOT_YET_PORTED) == {"matmul_precision", "zoom_precision",
-                                       "conv_precision"}
+    assert set(tcfg.NOT_YET_PORTED) == {"matmul_precision", "conv_precision"}
     assert set(tcfg.TPU_LAYOUT_ONLY) == {"pallas_lambda_chunk",
                                         "pallas_dir_block",
                                         "pallas_conv_pack"}
@@ -92,3 +91,19 @@ def test_bad_support_raises_like_jax():
                 jcfg.GalacsiConfig(otf_support=100)):
         with pytest.raises(ValueError):
             cfg.otf_window
+
+
+def test_zoom_precision_is_ported_and_checked():
+    """The JAX default "high" and "highest" are accepted; the JAX
+    package's one-pass "default" (outside the accuracy budget) and any
+    other value raise."""
+    assert tcfg.GalacsiConfig().zoom_precision == "high" == \
+        jcfg.GalacsiConfig().zoom_precision
+    assert tcfg.ZOOM_PRECISIONS == ("high", "highest")
+    assert tcfg.GalacsiConfig(zoom_precision="highest").zoom_precision == \
+        "highest"
+    for bad in ("default", "HIGH", None):
+        with pytest.raises(ValueError, match="zoom_precision"):
+            tcfg.GalacsiConfig(zoom_precision=bad)
+        with pytest.raises(ValueError, match="zoom_precision"):
+            tcfg.TINY_CONFIG.with_(zoom_precision=bad)

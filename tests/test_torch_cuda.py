@@ -1,7 +1,10 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on
 the card (K1, K3, K5 and K6 <= 1e-5, K2 <= 1e-6 relative max-abs; K3
 against K1 <= 2e-6, and bit-identical on a rerun), K1 on a strided
-structure function, and the batch night through the kernels.  Marked ``cuda``:
+structure function, the tensor-core body of zoom_precision "high" against
+its 3-pass plain version (<= 2e-6: the same bf16 products summed in
+another order) and against the FMA body, and the batch night through the
+kernels.  Marked ``cuda``:
 skipped where no CUDA card is present (CUDA kernels have no CPU mode).
 On a GPU machine:
 
@@ -84,6 +87,55 @@ def test_rowsplit_kernel_matches_plain(dev, ndir, R):
                                                     row_splits=R))
 
 
+# the last two read D from device memory: 10 directions do not fit the
+# shared-memory stage, and 130 columns leave dl's rows unaligned
+_TC_SHAPES = [(1, 256, 256, 32, True, 1), (3, 96, 80, 24, False, 1),
+              (1, 64, 128, 200, True, 1), (9, 512, 200, 170, True, 2),
+              (1, 512, 200, 170, False, 4), (10, 128, 64, 32, True, 1),
+              (1, 128, 130, 40, True, 2)]
+
+
+@pytest.mark.parametrize("ndir,n,ncols,m2,exp2,R", _TC_SHAPES)
+def test_tc_kernel_matches_plain_high(dev, ndir, n, ncols, m2, exp2, R):
+    """K1/K3 at "high" on tensor cores, with ragged columns, rows past one
+    160-row block and ragged output fragments: against the plain 3-pass
+    version <= 2e-6 of max|U|; against the FMA body ("highest") <= 2e-5,
+    the split's own error on these strongly cancelling random inputs
+    (<= 7.5e-6 between the two plain versions); counted on its own
+    counter only; bit-identical on a rerun."""
+    args = _zoom_args(dev, 2, ndir, n, ncols, m2)
+    kw = dict(exp2=exp2, row_splits=R, precision="high")
+    key = "zoom_dft_tc" if R == 1 else "zoom_dft_tc_rowsplit"
+    before = _build.launch_counts()
+    got = zoom_dft.fused_exp_zoom(*args, **kw)
+    after = _build.launch_counts()
+    assert after == dict(before, **{key: before[key] + 1})
+    assert _rel(got, zoom_dft.fused_exp_zoom_reference(*args, **kw)) <= 2e-6
+    exact = zoom_dft.fused_exp_zoom(*args, exp2=exp2, row_splits=R)
+    assert _rel(got, exact) <= 2e-5
+    assert torch.equal(got, zoom_dft.fused_exp_zoom(*args, **kw))
+
+
+def test_tc_kernel_takes_a_strided_view_and_checks_rows(dev):
+    dphi, dl, a2, alpha, w = _zoom_args(dev, 2, 3, 256, 384, 32)
+    view = dphi[..., 64:192, 64:]
+    args = (view, dl[64:192, 64:].contiguous(), a2[..., 64:192].contiguous(),
+            alpha, w)
+    got = zoom_dft.fused_exp_zoom(*args, precision="high")
+    want = zoom_dft.fused_exp_zoom_reference(view.contiguous(), *args[1:],
+                                             precision="high")
+    assert _rel(got, want) <= 2e-6
+    # a view one column in: its rows are not 16-byte aligned
+    odd = (dphi[..., 64:192, 65:], dl[64:192, 65:].contiguous(), *args[2:])
+    got = zoom_dft.fused_exp_zoom(*odd, precision="high")
+    want = zoom_dft.fused_exp_zoom_reference(odd[0].contiguous(), *odd[1:],
+                                             precision="high")
+    assert _rel(got, want) <= 2e-6
+    bad = _zoom_args(dev, 1, 1, 36, 64, 16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        zoom_dft.fused_exp_zoom(*bad, precision="high")
+
+
 def test_zoom_kernel_takes_a_strided_view(dev):
     """The blue sub-window is a view of the structure function: the kernel
     reads it through its strides, without a copy."""
@@ -96,6 +148,31 @@ def test_zoom_kernel_takes_a_strided_view(dev):
     want = zoom_dft.fused_exp_zoom_reference(view.contiguous(), *args[1:],
                                              row_splits=2)
     assert _rel(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("R", [1, 2])
+def test_tc_disc_kernel_matches_plain_high(dev, R):
+    """K5 at "high": the live-row table as the tensor-core body's K-loop
+    bounds, against its 3-pass plain version and the "high" K1 on dl
+    zeroed outside the live rows."""
+    from muse_psfr_tpu_torch.ops.zoom_dft import disc_live_rows
+    args = _zoom_args(dev, 2, 9, 512, 256, 170)
+    mask = np.array([[0, 1, 1, 0], [0, 0, 1, 1]], np.int32)
+    before = _build.launch_counts()
+    got = zoom_dft.fused_exp_zoom_disc(*args, mask, exp2=True, row_splits=R,
+                                       precision="high")
+    after = _build.launch_counts()
+    assert after == dict(before, zoom_dft_tc_disc=before["zoom_dft_tc_disc"]
+                         + 1)
+    assert _rel(got, zoom_dft.fused_exp_zoom_disc_reference(
+        *args, mask, exp2=True, row_splits=R, precision="high")) <= 2e-6
+    live = torch.as_tensor(disc_live_rows(mask, 512, 256), device=dev)
+    rows = torch.arange(512, device=dev)[:, None]
+    tiles = live[torch.arange(256, device=dev) // 64]
+    keep = (rows >= tiles[:, 0]) & (rows < tiles[:, 1])
+    k1 = zoom_dft.fused_exp_zoom(args[0], args[1] * keep, *args[2:],
+                                 exp2=True, row_splits=R, precision="high")
+    assert _rel(got, k1) <= 2e-6
 
 
 @pytest.mark.parametrize("R", [1, 2])
@@ -176,8 +253,10 @@ def test_night_runs_both_kernels(dev):
             np.ones((3, 4)), [750.0, 900.0])
     fit, psf_mean, _ = process_batch(*args, cfg=cfg, chunk=2, device="cuda")
     counts = _build.launch_counts()
-    # 2 rows x 2 wavelengths of TINY fill 16 blocks: the zoom runs as K3
-    assert counts["zoom_dft_rowsplit"] > 0 and counts["conv_dft"] > 0
+    # 2 rows x 2 wavelengths of TINY fill 16 blocks: the zoom runs as K3,
+    # on the tensor-core body of the default zoom_precision "high"
+    assert counts["zoom_dft_tc_rowsplit"] > 0 and counts["conv_dft"] > 0
+    assert counts["zoom_dft"] == counts["zoom_dft_rowsplit"] == 0
     ref = process_batch(*args, cfg=cfg, chunk=2, device="cpu")
     assert np.abs(psf_mean - ref[1]).max() <= 1e-5 * np.abs(ref[1]).max()
     assert np.all(fit[..., -1] == 1.0)

@@ -113,3 +113,14 @@ def test_config_from_reference_carries_anchor_and_disc():
                       disc_skip=True, disc_min_ndir=1)
     with pytest.raises(ValueError):
         state.load_reference_constants({"coeff_l0": np.ones(3)}, TTINY)
+
+
+def test_config_from_reference_carries_zoom_precision():
+    """zoom_precision reaches the port as it is; the JAX package's
+    one-pass "default" is refused."""
+    for prec in ("high", "highest"):
+        assert state.config_from_reference(dataclasses.asdict(
+            JConfig(zoom_precision=prec))).zoom_precision == prec
+    with pytest.raises(ValueError, match="zoom_precision"):
+        state.config_from_reference(dataclasses.asdict(
+            JConfig(zoom_precision="default")))
