@@ -8,6 +8,8 @@ Run from the repository root on a machine with a CUDA card:
                                               # of one warmed night -> OUT
     python3 chip_smoke.py --profile-ndir9 OUT # the same for the
                                               # 9-direction night
+    python3 chip_smoke.py --profile-anchor OUT  # and for it with
+                                              # zoom_anchor="auto"
 
 Phases (any failure raises, so the exit code is non-zero):
 
@@ -29,15 +31,19 @@ Phases (any failure raises, so the exit code is non-zero):
    its error against exact float32 K1 (the FMA body), its time, TFLOP/s
    and bound;
 6. K2 (convolution chain) against its plain version at 50 rows x 35
-   planes of 40 x 40 (transform size 64); relative max-abs <= 1e-6;
-7. K5 (the diffraction-disc skip) on both bodies and K6 (the
-   anchored-Taylor damping) on the full window (4 rows x 35 wavelengths x
-   9 directions, (1280, 768)): K5 against its plain version (<= 1e-6 on
-   the FMA body, <= 2e-6 on the tensor cores) and against K1 of its body
-   on the same inputs with the real block mask (<= 1e-6 of max|U|), K6
-   against its plain version (<= 1e-6) and against exact K1 (within ndir
-   x the certified bound x max row-L1(A2) + 1e-5 of max|U|), with the
-   times of each;
+   planes of 40 x 40 (transform size 64); relative max-abs <= 1e-6; both
+   and the cuFFT route against the float64 chain (printed); the time of
+   K2 beside that of the cuFFT route, which the default ``use_fft=True``
+   takes instead;
+7. K5 (the diffraction-disc skip) and K6 (the anchored-Taylor damping) on
+   both bodies on the full window (4 rows x 35 wavelengths x 9
+   directions, (1280, 768)): K5 against its plain version (<= 1e-6 on the
+   FMA body, <= 2e-6 on the tensor cores) and against K1 of its body on
+   the same inputs with the real block mask (<= 1e-6 of max|U|), K6
+   against its plain version (<= 1e-6 on the FMA body, <= 2e-6 of max|U|
+   on the tensor cores against the 3-pass plain version) and against
+   exact K1 (within ndir x the certified bound x max row-L1(A2) + 1e-5 of
+   max|U|), with the times of each;
 8. the 1-direction bench night (100 rows x 35 wavelengths, 490-930 nm,
    chunk=50, FFT-free config, zoom_precision "high") through the auto
    planner: the plan equals ``tests/data/golden_plan_night100.json``,
@@ -58,17 +64,20 @@ Phases (any failure raises, so the exit code is non-zero):
     mean PSF within 1e-6 relative of the exact night; five warmed nights
     at "high";
 11. the same night with ``zoom_anchor="auto"``: the plan (which groups
-    resolved to "on"), K6 launched, mean PSF within 1e-5 relative and
-    per-row FWHM/beta within 1e-3 of the exact night, 0 guard trips; five
-    warmed nights; the golden row at npsflin=1 with the anchor forced
-    (rms <= 1e-5);
+    resolved to "on"), K6 launched on the tensor cores only, mean PSF
+    within 1e-5 relative and per-row FWHM/beta within 1e-3 of the exact
+    night, 0 guard trips; five warmed nights; the golden row at npsflin=1
+    with the anchor forced (rms <= 1e-5); then the anchored night at
+    "highest", the FMA body of K6 only, against the exact night at
+    "highest";
 12. a forced redo: a pinned 128-px window too small for the ultra-weak
     damping row (0.2", 0.01, 30 m) at 930 nm trips the window guard, and
     the redone cube equals the full-window one to <= 2e-6 abs;
 13. one JSON line of per-kernel results, each with its launches on the
     path that runs it (the default nights for the tensor-core body and
     K2, the "highest" nights for the FMA body, the switch nights for K5
-    and K6; every one must be > 0) and its bound (the larger of its bytes
+    and K6, each on the body of its night's precision; every one must be
+    > 0) and its bound (the larger of its bytes
     over 3.35 TB/s and its operations, each over its unit's peak: fp32
     FLOPs over 67 TFLOP/s, bf16 tensor-core FLOPs over 989 TFLOP/s,
     exponentials over the SFU's 16 a clock per SM), from this run's
@@ -98,15 +107,17 @@ LBDA = np.linspace(490, 930, 35)
 ZOOM_SRC = "muse_psfr_tpu_torch/csrc/zoom_dft.cu"
 TC_SRC = "muse_psfr_tpu_torch/csrc/zoom_dft_tc.cu"
 ANCHOR_SRC = "muse_psfr_tpu_torch/csrc/zoom_anchor.cu"
+ANCHOR_TC_SRC = "muse_psfr_tpu_torch/csrc/zoom_anchor_tc.cu"
 JAX_ZOOM = "muse_psfr_tpu/ops/zoom_dft.py"
 #: NVIDIA H100 SXM datasheet peaks: fp32 outside the tensor cores, dense
 #: bf16 tensor cores, HBM3; and the SFU's exponentials, 16 a clock per SM
 #: on 132 SMs at the 1.98 GHz boost clock
 PEAK_FP32, PEAK_BF16, HBM = 67e12, 989e12, 3.35e12
 PEAK_EXP = 16 * 132 * 1.98e9
-#: the FMA body's launch counters ("highest"), which a night at "high"
+#: the FMA bodies' launch counters ("highest"), which a night at "high"
 #: must leave at 0
-FMA_ZOOM = ("zoom_dft", "zoom_dft_rowsplit", "zoom_dft_disc")
+FMA_ZOOM = ("zoom_dft", "zoom_dft_rowsplit", "zoom_dft_disc",
+            "zoom_dft_anchor")
 
 
 def card_line():
@@ -297,17 +308,18 @@ def check_zoom_kernel(torch, cfg, dev, rows, nrow, lb, npsflin=1,
             "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, **bound}
 
 
-def check_conv_kernel(torch, cfg, dev, rows):
-    """K2 vs its plain version at one production chunk (50 rows x 35
-    planes), with the real tip-tilt and intrinsic Moffat spectra."""
+def conv_inputs(torch, cfg, dev, rows, B=50):
+    """K2's inputs at one production chunk (``B`` rows x 35 planes of
+    random values), with the real tip-tilt and intrinsic Moffat kernels:
+    the kernels' arguments, the spatial kernels and their spectra in
+    float64."""
     from muse_psfr_tpu_torch.core.moffat import (moffat_fwhm_to_alpha,
                                                  moffat_kernel,
                                                  muse_intrinsic_psf)
-    from muse_psfr_tpu_torch.ops import conv_dft
     from muse_psfr_tpu_torch.otf.convolve import (_dft_spectra,
                                                   _same_fft_size,
                                                   tip_tilt_fwhm)
-    n, nk, nl, B = cfg.dimpsf, cfg.dimpsf + 1, 35, 50
+    n, nk, nl = cfg.dimpsf, cfg.dimpsf + 1, LBDA.size
     L = _same_fft_size(n, nk)
     seeing, GL, L0 = (torch.as_tensor(a[:B], dtype=torch.float32,
                                       device=dev) for a in rows[:3])
@@ -321,7 +333,22 @@ def check_conv_kernel(torch, cfg, dev, rows):
     gi_r, gi_i = (x.contiguous() for x in _dft_spectra(k_i, L))
     planes = torch.as_tensor(np.random.default_rng(7).random((B, nl, n, n)),
                              dtype=torch.float32, device=dev)
-    args = (planes, gtt_r, gtt_i, gi_r, gi_i, nk)
+    s64 = [x.contiguous() for k in (k_tt, k_i)
+           for x in _dft_spectra(k.double(), L)]
+    return (planes, gtt_r, gtt_i, gi_r, gi_i, nk), (k_tt, k_i), s64
+
+
+def check_conv_kernel(torch, cfg, dev, rows):
+    """K2 vs its plain version at one production chunk (50 rows x 35
+    planes), with the real tip-tilt and intrinsic Moffat spectra; both
+    against the float64 chain; and the time of the cuFFT route that the
+    default config (``use_fft=True``) takes instead of K2."""
+    from muse_psfr_tpu_torch.ops import conv_dft
+    from muse_psfr_tpu_torch.otf.convolve import _fft_convolve_same
+    args, (k_tt, k_i), s64 = conv_inputs(torch, cfg, dev, rows)
+    planes, nk = args[0], args[-1]
+    B, nl, n, _ = planes.shape
+    L = args[1].shape[-1]
     got = conv_dft.fused_conv_chain(*args)
     want = conv_dft.fused_conv_chain_reference(*args)
     torch.cuda.synchronize()
@@ -330,22 +357,41 @@ def check_conv_kernel(torch, cfg, dev, rows):
           f"abs err {abs_err:.3e}, relative {rel:.3e} (limit 1e-6)")
     if not rel <= 1e-6:
         raise RuntimeError(f"K2 disagrees with its plain version: {rel}")
+
+    def fft_route():
+        y = _fft_convolve_same(planes, k_tt[:, None], n, nk)
+        return _fft_convolve_same(y, k_i[None], n, nk)
+
+    # the chain in float64 (spectra from the float64 kernels)
+    w64 = conv_dft.fused_conv_chain_reference(planes.double(), *s64, nk)
+    errs = {name: rel_err(torch, y, w64)[1] for name, y in
+            (("K2", got), ("plain", want), ("cuFFT route", fft_route()))}
+    print("K2 against the float64 chain, relative max-abs: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items()))
+    del w64, s64
     ms = cuda_ms(torch, lambda: conv_dft.fused_conv_chain(*args), 50)
     plain_ms = cuda_ms(torch,
                        lambda: conv_dft.fused_conv_chain_reference(*args), 50)
-    print(f"K2 time {ms:.4f} ms, plain PyTorch {plain_ms:.4f} ms")
+    fft_ms = cuda_ms(torch, fft_route, 50)
+    ms2 = cuda_ms(torch, lambda: conv_dft.fused_conv_chain(*args), 50)
+    print(f"K2 time {ms:.4f} ms (again after the others: {ms2:.4f} ms), "
+          f"plain PyTorch {plain_ms:.4f} ms, the cuFFT route of use_fft=True "
+          f"(_fft_convolve_same twice) {fft_ms:.4f} ms")
     # FMAs per 'same' convolution: forward (2L x n)(n x n), four
     # (L x n)(n x L), four (n x L)(L x L), two (n x L)(L x n); and ~8
     # operations per spectrum element
     per_conv = 2.0 * (2 * L * n * n + 4 * L * L * n + 4 * n * L * L
                       + 2 * n * n * L)
+    flop = 2 * B * nl * per_conv + 2.0 * B * nl * 8 * L * L
     bound = roofline("K2", 4.0 * (2 * B * nl * n * n + 2 * (B + nl) * L * L
-                                  + 8 * L * n),
-                     fp32=2 * B * nl * per_conv + 2.0 * B * nl * 8 * L * L)
+                                  + 2 * L * L), fp32=flop)
+    print(f"K2 at {bound['bound_ms'] / ms:.1%} of its bound, "
+          f"{flop / ms / 1e9:.2f} TFLOP/s")
     return {"name": "fused_conv_chain", "route": "cuda",
             "source": "muse_psfr_tpu_torch/csrc/conv_dft.cu",
             "replaces": "muse_psfr_tpu/ops/conv_dft.py:139",
-            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, **bound}
+            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+            "fft_route_ms": fft_ms, "f64_rel_err": errs["K2"], **bound}
 
 
 def check_disc_anchor_kernels(torch, cfg, dev, rows):
@@ -401,22 +447,27 @@ def check_disc_anchor_kernels(torch, cfg, dev, rows):
     astar, coef = _anchor_operands(args[3], k, deg,
                                    ndir * float(pupil_otf(cfg)[c, c]))
     a6 = (base, dl, a2, base[:, :, c, c].contiguous(), astar, coef, k)
-    got = zoom_dft.fused_exp_zoom_anchor(*a6)
-    want = zoom_dft.fused_exp_zoom_anchor_reference(*a6)
-    torch.cuda.synchronize()
-    err6, rel6 = rel_err(torch, got, want)
     bound = zoom_anchor_bound(LBDA, k, deg)
     row_l1 = float(torch.max(torch.sum(torch.abs(a2.double()), dim=2)))
     scale = float(torch.max(torch.abs(k1)))
     atol = ndir * bound * row_l1 + 1e-5 * scale
-    err61 = float(torch.max(torch.abs(got.double() - k1.double())))
-    print(f"K6 fused_exp_zoom_anchor: groups of {k}, degree {deg}, "
-          f"certified bound {bound:.3e}; max abs err {err6:.3e}, relative "
-          f"to max|U| {rel6:.3e} (limit 1e-6); against exact K1 {err61:.3e} "
-          f"= {err61 / scale:.3e} of max|U| (limit {atol:.3e})")
-    if not (rel6 <= 1e-6 and err61 <= atol):
-        raise RuntimeError(f"K6 disagrees: plain {rel6}, K1 {err61}")
-    del got, want, k1
+    err6 = {}
+    for prec, limit in (("highest", 1e-6), ("high", 2e-6)):
+        got = zoom_dft.fused_exp_zoom_anchor(*a6, precision=prec)
+        want = zoom_dft.fused_exp_zoom_anchor_reference(*a6, precision=prec)
+        torch.cuda.synchronize()
+        err6[prec], rel6 = rel_err(torch, got, want)
+        err61 = float(torch.max(torch.abs(got.double() - k1.double())))
+        print(f"K6 fused_exp_zoom_anchor at {prec}: groups of {k}, degree "
+              f"{deg}, certified bound {bound:.3e}; max abs err "
+              f"{err6[prec]:.3e}, relative to max|U| {rel6:.3e} (limit "
+              f"{limit:g}); against exact K1 {err61:.3e} = "
+              f"{err61 / scale:.3e} of max|U| (limit {atol:.3e})")
+        if not (rel6 <= limit and err61 <= atol):
+            raise RuntimeError(f"K6 at {prec} disagrees: plain {rel6}, K1 "
+                               f"{err61}")
+        del got, want
+    del k1
 
     reps = 3
     ms1 = cuda_ms(torch, lambda: zoom_dft.fused_exp_zoom(*args, exp2=exp2),
@@ -424,10 +475,14 @@ def check_disc_anchor_kernels(torch, cfg, dev, rows):
     ms5 = cuda_ms(torch, lambda: zoom_dft.fused_exp_zoom_disc(
         *args, mask, exp2=exp2), reps)
     ms6 = cuda_ms(torch, lambda: zoom_dft.fused_exp_zoom_anchor(*a6), reps)
+    ms6h = cuda_ms(torch, lambda: zoom_dft.fused_exp_zoom_anchor(
+        *a6, precision="high"), reps)
     plain5 = cuda_ms(torch, lambda: zoom_dft.fused_exp_zoom_disc_reference(
         *args, mask, exp2=exp2), reps)
     plain6 = cuda_ms(torch, lambda: zoom_dft.fused_exp_zoom_anchor_reference(
         *a6), reps)
+    plain6h = cuda_ms(torch, lambda: zoom_dft.fused_exp_zoom_anchor_reference(
+        *a6, precision="high"), reps)
     ms1h = cuda_ms(torch, lambda: zoom_dft.fused_exp_zoom(*args, **high),
                    reps)
     ms5h = cuda_ms(torch, lambda: zoom_dft.fused_exp_zoom_disc(
@@ -436,7 +491,8 @@ def check_disc_anchor_kernels(torch, cfg, dev, rows):
         *args, mask, **high), reps)
     print(f"same inputs: K1 {ms1:.4f} ms, K5 {ms5:.4f} ms (plain "
           f"{plain5:.4f}), K6 {ms6:.4f} ms (plain {plain6:.4f}); at high: "
-          f"K1 {ms1h:.4f} ms, K5 {ms5h:.4f} ms (plain {plain5h:.4f})")
+          f"K1 {ms1h:.4f} ms, K5 {ms5h:.4f} ms (plain {plain5h:.4f}), K6 "
+          f"{ms6h:.4f} ms (plain {plain6h:.4f})")
     live = zoom_dft.disc_live_rows(mask, n, ncols)
     elems = int(np.sum(live[:, 1] - live[:, 0])) * zoom_dft.N_TILE
     ng = astar.shape[0]
@@ -453,25 +509,34 @@ def check_disc_anchor_kernels(torch, cfg, dev, rows):
                **roofline("K5 high", **zoom_work(B, ndir, n, ncols, nl, m2,
                                                  "high", elems)))
     # per group and direction one exponential and its power sums (deg1
-    # products and sums, the shift), per wavelength deg1 products and sums
+    # products and sums, the shift), per wavelength deg1 products and sums;
+    # the contraction in float32 ("highest") or as three bf16 passes
+    nbytes = 4.0 * (B * ndir * n * ncols + n * ncols + nl * m2 * n + B * ndir
+                    + ng + nl * deg1 + B * nl * m2 * ncols)
+    other = float(B * n * ncols * (ng * ndir * (2 * deg1 + 1)
+                                   + nl * 2 * deg1))
+    contraction = 2.0 * B * nl * m2 * n * ncols
+    exps = float(B * n * ncols * ng * ndir)
     k6 = dict(name="fused_exp_zoom_anchor (K6 _kernel_anchor)",
               route="cuda", source=ANCHOR_SRC, replaces=f"{JAX_ZOOM}:206",
-              max_abs_err=err6, ms=ms6, plain_ms=plain6,
-              **roofline("K6", 4.0 * (B * ndir * n * ncols + n * ncols
-                                      + nl * m2 * n + B * ndir + ng
-                                      + nl * deg1 + B * nl * m2 * ncols),
-                         fp32=2.0 * B * nl * m2 * n * ncols
-                         + float(B * n * ncols * (ng * ndir * (2 * deg1 + 1)
-                                                  + nl * 2 * deg1)),
-                         exps=float(B * n * ncols * ng * ndir)))
+              max_abs_err=err6["highest"], ms=ms6, plain_ms=plain6,
+              **roofline("K6", nbytes, fp32=contraction + other, exps=exps))
+    k6h = dict(name="fused_exp_zoom_anchor@high (K6 _kernel_anchor, 3-pass "
+               "bf16 tensor cores)", route="cuda", source=ANCHOR_TC_SRC,
+               replaces=f"{JAX_ZOOM}:206,179", max_abs_err=err6["high"],
+               ms=ms6h, plain_ms=plain6h,
+               **roofline("K6 high", nbytes, fp32=other, tc=3 * contraction,
+                          exps=exps))
+    print(f"K6 at {k6['bound_ms'] / ms6:.1%} of its bound, K6 high at "
+          f"{k6h['bound_ms'] / ms6h:.1%} of its bound")
     del args, a6, base, a2
     torch.cuda.empty_cache()
-    return k5, k6, k5h
+    return k5, k6, k5h, k6h
 
 
 def no_disc_or_anchor(counts, label):
     if (counts["zoom_dft_disc"] or counts["zoom_dft_tc_disc"]
-            or counts["zoom_dft_anchor"]):
+            or counts["zoom_dft_anchor"] or counts["zoom_dft_tc_anchor"]):
         raise RuntimeError(f"{label} launched K5 or K6: {counts}")
 
 
@@ -523,7 +588,7 @@ def warmed_nights(process_batch, rows, night, card, label, n=5):
 
 def zoom_key(cfg, kind=""):
     """The launch counter of the zoom body ``cfg.zoom_precision`` runs:
-    ``kind`` "" (K1), "_rowsplit" (K3) or "_disc" (K5)."""
+    ``kind`` "" (K1), "_rowsplit" (K3), "_disc" (K5) or "_anchor" (K6)."""
     return ("zoom_dft_tc" if cfg.zoom_precision == "high"
             else "zoom_dft") + kind
 
@@ -710,7 +775,8 @@ def disc_night(cfg, rows, card, exact, warm=5):
     print(f"9-direction night, disc_skip=True, zoom_precision="
           f"{cfg.zoom_precision}: launches {counts}; mean PSF relative "
           f"max-abs {rel:.3e} from the exact night (limit 1e-6)")
-    if counts[zoom_key(cfg, "_disc")] < 1 or counts["zoom_dft_anchor"]:
+    if (counts[zoom_key(cfg, "_disc")] < 1 or counts["zoom_dft_anchor"]
+            or counts["zoom_dft_tc_anchor"]):
         raise RuntimeError(f"K5 did not run on the disc night: {counts}")
     on_one_body(counts, cfg.zoom_precision, "the disc night")
     check_fits(fit, len(rows[0]), psf_mean, fit_mean)
@@ -722,10 +788,11 @@ def disc_night(cfg, rows, card, exact, warm=5):
     return counts
 
 
-def anchor_night(cfg, rows, card, guard_log, exact):
+def anchor_night(cfg, rows, card, guard_log, exact, warm=5, golden=True):
     """The 9-direction night with zoom_anchor="auto": the plan, K6 on the
-    certified groups, the mean PSF and per-row fits against the exact
-    night's; then the golden row with the anchor forced."""
+    certified groups on the body of ``cfg.zoom_precision`` only, the mean
+    PSF and per-row fits against the exact night's at the same precision;
+    then the golden row with the anchor forced."""
     from muse_psfr_tpu_torch.ops import _build
     from muse_psfr_tpu_torch.parallel.batch import (plan_batch,
                                                     process_batch,
@@ -750,23 +817,28 @@ def anchor_night(cfg, rows, card, guard_log, exact):
     rn = np.abs(got["n"] - want["n"]) / np.abs(want["n"])
     dfw, dn = float(rfw.max()), float(rn.max())
     worst = np.unravel_index(np.argmax(rn), rn.shape)
-    print(f"9-direction night, zoom_anchor=auto: launches {counts}; "
+    print(f"9-direction night, zoom_anchor=auto, zoom_precision="
+          f"{cfg.zoom_precision}: launches {counts}; "
           f"window-guard trips: {len(guard_log.trips)}; mean PSF relative "
           f"max-abs {rel:.3e} from the exact night (limit 1e-5); per-row "
           f"FWHM {dfw:.3e}, beta {dn:.3e} relative (limit 1e-3; median "
           f"{float(np.median(rfw)):.3e}, {float(np.median(rn)):.3e}; worst "
           f"beta at row {worst[0]}, {LBDA[worst[1]]:.1f} nm: "
           f"{float(got['n'][worst]):.6f} vs {float(want['n'][worst]):.6f})")
-    if counts["zoom_dft_anchor"] < 1 or counts["zoom_dft_disc"]:
+    key = zoom_key(cfg, "_anchor")
+    if counts[key] < 1 or counts["zoom_dft_disc"]:
         raise RuntimeError(f"K6 did not run on the anchored night: {counts}")
+    on_one_body(counts, cfg.zoom_precision, "the anchored night")
     if guard_log.trips:
         raise RuntimeError(f"guard trips on the anchored night: "
                            f"{guard_log.trips}")
     if not (rel <= 1e-5 and dfw <= 1e-3 and dn <= 1e-3):
         raise RuntimeError("the anchored night departs from the exact one")
-    warmed_nights(process_batch, rows, night, card,
-                  "9-direction night, zoom_anchor=auto")
-
+    if warm:
+        warmed_nights(process_batch, rows, night, card,
+                      "9-direction night, zoom_anchor=auto", n=warm)
+    if not golden:
+        return counts
     _build.reset_launch_counts()
     cube = reconstruct_batch(*(a[:1] for a in rows), lbda=LBDA,
                              cfg=cfg.with_(zoom_anchor="on"), chunk=1,
@@ -777,7 +849,7 @@ def anchor_night(cfg, rows, card, guard_log, exact):
     print(f"golden row (1.0, 0.7, 25), zoom_anchor=on at npsflin=1: rms "
           f"{rms:.3e} vs the float64 oracle (limit 1e-5); launches "
           f"{golden_counts}")
-    if golden_counts["zoom_dft_anchor"] < 1 or not rms <= 1e-5:
+    if golden_counts[key] < 1 or not rms <= 1e-5:
         raise RuntimeError(f"anchored golden row: rms {rms}, launches "
                            f"{golden_counts}")
     return counts
@@ -826,6 +898,9 @@ def main(argv):
                              "table to OUT")
     parser.add_argument("--profile-ndir9", metavar="OUT",
                         help="also profile one warmed 9-direction night")
+    parser.add_argument("--profile-anchor", metavar="OUT",
+                        help="also profile one warmed 9-direction night "
+                             "with zoom_anchor=\"auto\"")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -899,7 +974,7 @@ def main(argv):
                                       dev, rows, 1, lb3, row_splits=r_cli,
                                       label="K3 high CLI"))
     k2 = check_conv_kernel(torch, cfg, dev, rows)
-    k5, k6, t5 = check_disc_anchor_kernels(torch, cfg, dev, rows)
+    k5, k6, t5, t6 = check_disc_anchor_kernels(torch, cfg, dev, rows)
 
     counts, cli_counts, night, mean1 = main_path(torch, cfg, rows, card)
     counts_fma, cli_fma = highest_night(fma, rows, card, mean1)
@@ -908,18 +983,22 @@ def main(argv):
     counts_disc = disc_night(cfg, rows, card, exact9)
     counts_disc_fma = disc_night(fma, rows, card, exact9_fma, warm=0)
     counts_anchor = anchor_night(cfg, rows, card, guard_log, exact9)
+    counts_anchor_fma = anchor_night(fma, rows, card, guard_log,
+                                     exact9_fma, warm=0, golden=False)
     forced_redo(cfg, guard_log)
     k1["launches"] = counts_fma["zoom_dft"]
     k1_9["launches"] = counts9_fma["zoom_dft"]
     k3["launches"] = k3_cli["launches"] = cli_fma["zoom_dft_rowsplit"]
     k5["launches"] = counts_disc_fma["zoom_dft_disc"]
-    k6["launches"] = counts_anchor["zoom_dft_anchor"]
+    k6["launches"] = counts_anchor_fma["zoom_dft_anchor"]
+    t6["launches"] = counts_anchor["zoom_dft_tc_anchor"]
     k2["launches"] = counts["conv_dft"]
     t1["launches"] = counts["zoom_dft_tc"]
     t1_9["launches"] = counts9["zoom_dft_tc"]
     t3["launches"] = t3_cli["launches"] = cli_counts["zoom_dft_tc_rowsplit"]
     t5["launches"] = counts_disc["zoom_dft_tc_disc"]
-    kernels = [k1, k1_9, k3, k3_cli, k2, k5, k6, t1, t1_9, t3, t3_cli, t5]
+    kernels = [k1, k1_9, k3, k3_cli, k2, k5, k6, t1, t1_9, t3, t3_cli, t5,
+               t6]
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         raise RuntimeError(f"never launched on their paths: {idle}")
@@ -927,6 +1006,9 @@ def main(argv):
         profile_night(torch, rows, night, args.profile)
     if args.profile_ndir9:
         profile_night(torch, rows, night9, args.profile_ndir9)
+    if args.profile_anchor:
+        profile_night(torch, rows, dict(night9, cfg=cfg.with_(
+            zoom_anchor="auto")), args.profile_anchor)
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

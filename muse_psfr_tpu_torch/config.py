@@ -14,10 +14,10 @@ convolution-chain kernel, ``ops/conv_dft.py``), and ``pallas_disc_skip``/
 knobs that only size or lay out TPU VMEM grid steps or vector-register
 lanes are listed in :data:`TPU_LAYOUT_ONLY`.
 
-``zoom_precision`` chooses how the fused zoom kernels contract on the
-card (:data:`ZOOM_PRECISIONS`): "high" (the JAX default) runs the 3-pass
-bf16 split ``hi*hi + hi*lo + lo*hi`` with float32 accumulation on tensor
-cores, "highest" full float32 FMAs.  The JAX package's "default" (one bf16
+``zoom_precision`` chooses how the fused zoom kernels (K1, K3, K5, K6)
+contract on the card (:data:`ZOOM_PRECISIONS`): "high" (the JAX default)
+runs the 3-pass bf16 split ``hi*hi + hi*lo + lo*hi`` with float32
+accumulation on tensor cores, "highest" full float32 FMAs.  The JAX package's "default" (one bf16
 pass) is outside the accuracy budget (``docs/precision.md``) and raises.
 The other two ``*_precision`` fields are not ported yet
 (:data:`NOT_YET_PORTED`): every other contraction runs in full float32
@@ -35,7 +35,8 @@ RENAMED = {"use_pallas": "use_fused_zoom", "use_pallas_conv": "use_fused_conv",
 #: steps (wavelengths per launch, directions per step) or pack wavelength
 #: planes into the lanes of a TPU vector register; they mean nothing on
 #: the card, where K1 takes every wavelength in one launch and sums every
-#: direction in registers, and K2 takes one plane per block
+#: direction in registers, and a K2 block loops over a group of planes
+#: sized to the card
 TPU_LAYOUT_ONLY = ("pallas_lambda_chunk", "pallas_dir_block",
                    "pallas_conv_pack")
 

@@ -39,6 +39,7 @@ KERNELS = {"zoom_dft": ("zoom_dft", "LAUNCHES"),
            "zoom_dft_tc_rowsplit": ("zoom_dft", "TC_ROWSPLIT_LAUNCHES"),
            "zoom_dft_tc_disc": ("zoom_dft", "TC_DISC_LAUNCHES"),
            "zoom_dft_anchor": ("zoom_dft", "ANCHOR_LAUNCHES"),
+           "zoom_dft_tc_anchor": ("zoom_dft", "TC_ANCHOR_LAUNCHES"),
            "conv_dft": ("conv_dft", "LAUNCHES")}
 
 _LOCK = threading.Lock()
@@ -61,8 +62,12 @@ _SIGNATURES = {
     # ncols, nl, m2, group, deg1, stream
     "muse_fused_exp_zoom_anchor": [_P] * 7 + [ctypes.c_longlong] * 3
     + [_I] * 8 + [_P],
-    # planes, gtt_r, gtt_i, gi_r, gi_i, 6 matrices, out, B, nl, n, L, stream
-    "muse_fused_conv_chain": [_P] * 12 + [_I] * 4 + [_P],
+    # dphi, dl, a2_hi, a2_lo, centre, astar, coef, u, 3 dphi strides, B,
+    # ndir, n, ncols, nl, m2, group, deg1, stream
+    "muse_fused_exp_zoom_anchor_tc": [_P] * 8 + [ctypes.c_longlong] * 3
+    + [_I] * 8 + [_P],
+    # planes, gtt_r, gtt_i, gi_r, gi_i, C, S, out, B, nl, n, L, off, stream
+    "muse_fused_conv_chain": [_P] * 8 + [_I] * 5 + [_P],
 }
 
 

@@ -11,25 +11,34 @@ computes only the n 'same'-window rows/columns, so the crop is free.
 
 :func:`fused_conv_chain` launches the hand-written CUDA kernel
 (``csrc/conv_dft.cu``; counterpart of
-``muse_psfr_tpu/ops/conv_dft.py:fused_conv_chain``) for CUDA tensors: one
-block per (row, plane), the whole chain in shared memory.  For CPU tensors
-it runs :func:`fused_conv_chain_reference`, the same operations in plain
-PyTorch.  The kernel spectra come from ``otf/convolve.py:_dft_spectra``.
+``muse_psfr_tpu/ops/conv_dft.py:fused_conv_chain``) for CUDA tensors: a
+block per (row, group of planes), the whole chain of each plane in shared
+memory, every transform a register-tiled float32 contraction against the
+two DFT matrices C and S, of which the six trimmed matrices are
+sub-blocks.  For CPU tensors it runs :func:`fused_conv_chain_reference`,
+the same operations in plain PyTorch.  The kernel spectra come from
+``otf/convolve.py:_dft_spectra``.
 """
 
 import numpy as np
 import torch
 
 from . import _build
+from ..otf.convolve import _dft_mats, _dft_mats_np, _same_fft_size
 from ..utils.device import host_const
 
 #: successful launches of the CUDA kernel (see ops/_build.py)
 LAUNCHES = 0
 
+#: largest plane side and transform size the kernel takes
+MAX_SIZE = 64
+
 
 def _trimmed_mats(L: int, n: int, off: int):
     """Host float64 trimmed transform matrices (``_trimmed_mats`` of the
-    JAX package with pack=1).  With ``C - iS`` the symmetric DFT matrix:
+    JAX package with pack=1), sub-blocks of the symmetric DFT matrix
+    ``C - iS`` (``otf/convolve.py:_dft_mats_np``), which the CUDA kernel
+    stages in their place:
 
     csn (2L, n): [C; S] columns restricted to the nonzero plane rows;
     crc/crs (n, L): right-multiplies of the forward transform
@@ -37,10 +46,7 @@ def _trimmed_mats(L: int, n: int, off: int):
     csel (2n, L): inverse rows restricted to the 'same' window;
     cdc/cds (L, n): inverse right-multiplies with only the window columns.
     """
-    a = np.arange(L)
-    ang = np.mod(np.outer(a, a), L) * (2.0 * np.pi / L)
-    c = np.cos(ang)
-    s = np.sin(ang)
+    c, s = _dft_mats_np(L)
     csn = np.concatenate([c[:, :n], s[:, :n]], axis=0)
     csel = np.concatenate([c[off:off + n, :], s[off:off + n, :]], axis=0)
     return (csn, c[:n, :], s[:n, :], csel, c[:, off:off + n],
@@ -86,28 +92,29 @@ def fused_conv_chain_reference(planes, gtt_r, gtt_i, gi_r, gi_i, n_ker):
 
 def fused_conv_chain(planes, gtt_r, gtt_i, gi_r, gi_i, n_ker):
     """K2 on the tensors' device: the CUDA kernel for CUDA tensors (float32
-    only; anything else raises), :func:`fused_conv_chain_reference` for CPU
-    tensors.  Shapes as in the reference; every tensor contiguous."""
+    only, plane side and transform size at most :data:`MAX_SIZE`; anything
+    else raises), :func:`fused_conv_chain_reference` for CPU tensors.
+    Shapes as in the reference; every tensor contiguous."""
     global LAUNCHES
     if planes.device.type == "cpu":
         return fused_conv_chain_reference(planes, gtt_r, gtt_i, gi_r, gi_i,
                                           n_ker)
-    from ..otf.convolve import _same_fft_size
     B, nl, n, _ = planes.shape
     L = _same_fft_size(n, n_ker)
     _build.check_operands("fused_conv_chain", planes.device, {
         "planes": (planes, (B, nl, n, n)), "gtt_r": (gtt_r, (B, L, L)),
         "gtt_i": (gtt_i, (B, L, L)), "gi_r": (gi_r, (nl, L, L)),
         "gi_i": (gi_i, (nl, L, L))})
-    if B > 65535:
-        raise ValueError(f"fused_conv_chain: grid too large (B={B})")
-    mats = _mats(L, n, (n_ker - 1) // 2, planes.device, torch.float32)
+    if B > 65535 or L > MAX_SIZE:
+        raise ValueError(f"fused_conv_chain: {B} rows of planes at transform "
+                         f"size {L}; the kernel takes at most 65535 rows and "
+                         f"size {MAX_SIZE}")
+    c, s = _dft_mats(L, planes.device, torch.float32)
     out = torch.empty_like(planes)
-    lib = _build.library()
-    err = lib.muse_fused_conv_chain(
+    err = _build.library().muse_fused_conv_chain(
         planes.data_ptr(), gtt_r.data_ptr(), gtt_i.data_ptr(),
-        gi_r.data_ptr(), gi_i.data_ptr(), *(m.data_ptr() for m in mats),
-        out.data_ptr(), B, nl, n, L,
+        gi_r.data_ptr(), gi_i.data_ptr(), c.data_ptr(), s.data_ptr(),
+        out.data_ptr(), B, nl, n, L, (n_ker - 1) // 2,
         torch.cuda.current_stream(planes.device).cuda_stream)
     _build.check_launch(err, "fused_conv_chain")
     LAUNCHES += 1

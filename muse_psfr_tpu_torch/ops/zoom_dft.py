@@ -25,15 +25,15 @@ products are summed in the fixed order r = 0..R-1.
 blocks of the diffraction OTF skipped: each 64-column tile contracts only
 its live rows, from a table the wrapper derives from the 128 x 128 block
 mask, in the same launch.  :func:`fused_exp_zoom_anchor` (K6,
-``cfg.zoom_anchor``, ``csrc/zoom_anchor.cu``) evaluates the damping of a
-group of wavelengths from shared power sums of one anchor exponential.
+``cfg.zoom_anchor``) evaluates the damping of a group of wavelengths from
+shared power sums of one anchor exponential.
 
-``precision`` (``cfg.zoom_precision``) chooses the contraction of K1, K3
-and K5, as ``_mxu_contract`` does on the TPU: "high" is the 3-pass bf16
-split ``a_hi@g_hi + a_hi@g_lo + a_lo@g_hi`` with float32 accumulation, on
-tensor cores (``csrc/zoom_dft_tc.cu``); "highest" is full float32, on the
-FMA body (``csrc/zoom_dft.cu``).  K6 always contracts in full float32,
-which is more exact than "high".
+``precision`` (``cfg.zoom_precision``) chooses the contraction of every
+one of them, as ``_mxu_contract`` does on the TPU: "high" is the 3-pass
+bf16 split ``a_hi@g_hi + a_hi@g_lo + a_lo@g_hi`` with float32
+accumulation, on tensor cores (``csrc/zoom_dft_tc.cu``, K6
+``csrc/zoom_anchor_tc.cu``); "highest" is full float32 on the FMA bodies
+(``csrc/zoom_dft.cu``, K6 ``csrc/zoom_anchor.cu``).
 """
 
 import numpy as np
@@ -47,7 +47,8 @@ from ..utils.device import host_const
 #: (K1), with R > 1 row slices and the ordered sum of their partials (K3),
 #: with the diffraction-disc skip (K5, any R); of the tensor-core body
 #: ("high") in the same three forms; and of the anchored-Taylor kernel
-#: (K6); see ops/_build.py
+#: (K6) on its FMA body ("highest") and on tensor cores ("high"); see
+#: ops/_build.py
 LAUNCHES = 0
 ROWSPLIT_LAUNCHES = 0
 DISC_LAUNCHES = 0
@@ -55,6 +56,7 @@ TC_LAUNCHES = 0
 TC_ROWSPLIT_LAUNCHES = 0
 TC_DISC_LAUNCHES = 0
 ANCHOR_LAUNCHES = 0
+TC_ANCHOR_LAUNCHES = 0
 
 #: output rows and columns of one CUDA block (``TI``/``TJ`` of both
 #: bodies, csrc/zoom_dft.cu and csrc/zoom_dft_tc.cu)
@@ -62,8 +64,9 @@ M_TILE, N_TILE = 160, 64
 #: contraction rows per step of the tensor-core body (``KS``)
 K_STEP = 32
 
-#: K6 limits (``KB``/``DMAX`` of csrc/zoom_anchor.cu): wavelengths per
-#: group, whose accumulators a block keeps in registers, and Taylor degree
+#: K6 limits (``KB``/``DMAX`` of csrc/zoom_anchor.cu and
+#: csrc/zoom_anchor_tc.cu): wavelengths per group, whose accumulators a
+#: block keeps in registers, and Taylor degree
 ANCHOR_MAX_GROUP, ANCHOR_MAX_DEGREE = 8, 11
 
 _LOG2E = float(np.log2(np.e))
@@ -348,7 +351,7 @@ def _anchor_shapes(dphi, a2, centre, astar, coef, group):
 
 
 def fused_exp_zoom_anchor_reference(dphi, dl, a2, centre, astar, coef,
-                                    group):
+                                    group, precision="highest"):
     """Plain PyTorch K6: ``U[b, l] = A2[l] @ ((sum_j coef[l, j] H_j[b]) *
     dl)``, ``H_j[b] = sum_d e^x x^j`` with ``x = astar[g] * (D[b, d] -
     centre[b, d])`` for the group ``g = l // group`` of wavelength l.
@@ -357,7 +360,9 @@ def fused_exp_zoom_anchor_reference(dphi, dl, a2, centre, astar, coef,
     ndir) the values subtracted per (row, direction), so that the JAX
     package's shifted copy of D is never made; astar (ceil(nl/group),);
     coef (nl, degree+1).  Returns (B, nl, 2M, ncols).  The power sums and
-    the per-wavelength combination run in the JAX kernel's order."""
+    the per-wavelength combination run in the JAX kernel's order; the
+    contraction at ``precision`` (:func:`contract`)."""
+    check_precision(precision)
     nl, deg1 = _anchor_shapes(dphi, a2, centre, astar, coef, group)
     out = []
     for g, l0 in enumerate(range(0, nl, group)):
@@ -375,24 +380,27 @@ def fused_exp_zoom_anchor_reference(dphi, dl, a2, centre, astar, coef,
             for j in range(1, deg1):
                 acc = acc + coef[l, j] * hs[j]
             gl.append(acc * dl)
-        out.append(torch.matmul(a2[l0:l0 + group], torch.stack(gl, dim=1)))
+        out.append(contract(a2[l0:l0 + group], torch.stack(gl, dim=1),
+                            precision))
     return torch.cat(out, dim=1)
 
 
-def fused_exp_zoom_anchor(dphi, dl, a2, centre, astar, coef, group):
-    """K6 on the tensors' device: the CUDA kernel (``csrc/zoom_anchor.cu``,
-    full float32 FMAs under either ``zoom_precision``: more exact than
-    "high") for CUDA tensors (float32 only; groups of at most
-    :data:`ANCHOR_MAX_GROUP` wavelengths, degree at most
-    :data:`ANCHOR_MAX_DEGREE`; anything else raises),
-    :func:`fused_exp_zoom_anchor_reference` for CPU tensors.  Counterpart
+def fused_exp_zoom_anchor(dphi, dl, a2, centre, astar, coef, group,
+                          precision="highest"):
+    """K6 on the tensors' device: for CUDA tensors (float32 only; groups of
+    at most :data:`ANCHOR_MAX_GROUP` wavelengths, degree at most
+    :data:`ANCHOR_MAX_DEGREE`; anything else raises) the tensor-core kernel
+    (``csrc/zoom_anchor_tc.cu``) at ``precision="high"`` or the FMA kernel
+    (``csrc/zoom_anchor.cu``) at "highest", for CPU tensors
+    :func:`fused_exp_zoom_anchor_reference` at ``precision``.  Counterpart
     of the JAX package's ``fused_exp_zoom_anchor``, with every group of
     the cube in one launch.  ``dphi`` may be any view with unit column
-    stride."""
-    global ANCHOR_LAUNCHES
+    stride.  The default "highest" is the JAX function's."""
+    global ANCHOR_LAUNCHES, TC_ANCHOR_LAUNCHES
+    check_precision(precision)
     if dphi.device.type == "cpu":
         return fused_exp_zoom_anchor_reference(dphi, dl, a2, centre, astar,
-                                               coef, group)
+                                               coef, group, precision)
     B, ndir, n, ncols = dphi.shape
     nl, deg1 = _anchor_shapes(dphi, a2, centre, astar, coef, group)
     m2 = a2.shape[1]
@@ -410,14 +418,29 @@ def fused_exp_zoom_anchor(dphi, dl, a2, centre, astar, coef, group):
                           unit_stride_only=True)
     if B > 65535:
         raise ValueError(f"fused_exp_zoom_anchor: grid too large (B={B})")
+    if precision == "high" and n % 8:
+        raise ValueError(f"fused_exp_zoom_anchor: the tensor-core body "
+                         f"stages A2 in rows of 8 bf16; {n} contraction "
+                         "rows are not a multiple of 8")
     u = torch.empty((B, nl, m2, ncols), dtype=torch.float32,
                     device=dphi.device)
     sb, sd, sr, _ = dphi.stride()
-    err = _build.library().muse_fused_exp_zoom_anchor(
-        dphi.data_ptr(), dl.data_ptr(), a2.data_ptr(), centre.data_ptr(),
-        astar.data_ptr(), coef.data_ptr(), u.data_ptr(), sb, sd, sr, B,
-        ndir, n, ncols, nl, m2, group, deg1,
-        torch.cuda.current_stream(dphi.device).cuda_stream)
+    stream = torch.cuda.current_stream(dphi.device).cuda_stream
+    if precision == "high":
+        a2_hi, a2_lo = split_bf16(a2)       # once per launch, as for K1
+        err = _build.library().muse_fused_exp_zoom_anchor_tc(
+            dphi.data_ptr(), dl.data_ptr(), a2_hi.data_ptr(),
+            a2_lo.data_ptr(), centre.data_ptr(), astar.data_ptr(),
+            coef.data_ptr(), u.data_ptr(), sb, sd, sr, B, ndir, n, ncols, nl,
+            m2, group, deg1, stream)
+    else:
+        err = _build.library().muse_fused_exp_zoom_anchor(
+            dphi.data_ptr(), dl.data_ptr(), a2.data_ptr(), centre.data_ptr(),
+            astar.data_ptr(), coef.data_ptr(), u.data_ptr(), sb, sd, sr, B,
+            ndir, n, ncols, nl, m2, group, deg1, stream)
     _build.check_launch(err, "fused_exp_zoom_anchor")
-    ANCHOR_LAUNCHES += 1
+    if precision == "high":
+        TC_ANCHOR_LAUNCHES += 1
+    else:
+        ANCHOR_LAUNCHES += 1
     return u

@@ -547,8 +547,8 @@ def _psf_chunk_fused(base, lb_k, npix_k, cfg: GalacsiConfig):
     normaliser exactly 1, so the weights fold into the coefficients), one
     exponential per direction and wavelength group.  ``cfg.disc_skip`` at
     ``ndir >= cfg.disc_min_ndir`` runs K5 where the window has dead
-    diffraction blocks (:func:`_disc_block_mask`).  K1, K3 and K5 contract
-    at :func:`_zoom_precision` (K6 always in full float32).
+    diffraction blocks (:func:`_disc_block_mask`).  Every one of them
+    contracts at :func:`_zoom_precision`.
 
     ``base``: (B, ndir, rows, cols) windowed structure function, which
     may be a strided view (the blue sub-window); ``lb_k``/``npix_k``: (k,)
@@ -567,7 +567,8 @@ def _psf_chunk_fused(base, lb_k, npix_k, cfg: GalacsiConfig):
         astar, coef = _anchor_operands(alpha, k, cfg.zoom_anchor_degree,
                                        ndir * float(pupil_otf(cfg)[c, c]))
         u = zoom_dft.fused_exp_zoom_anchor(
-            base, dl, a2, base[:, :, cc, cc].contiguous(), astar, coef, k)
+            base, dl, a2, base[:, :, cc, cc].contiguous(), astar, coef, k,
+            precision=_zoom_precision(cfg, base.device))
     else:
         splits = 1
         if base.device.type == "cuda":

@@ -32,13 +32,14 @@ BENCH = np.linspace(490.0, 930.0, 35)
 MUSE = np.linspace(465.0, 930.0, 35)
 
 
-def _kernel_inputs(B=2, ndir=9, nl=7, degree=8, n=256, m2=32, seed=7):
+def _kernel_inputs(B=2, ndir=9, nl=7, degree=8, n=256, m2=32, seed=7,
+                   band=30.0):
     """The JAX package's anchor-kernel test inputs (underflowing band
     included, MUSE-worst relative alpha spread), with a row axis and a
     centre value per (row, direction)."""
     rng = np.random.default_rng(seed)
     dphi = rng.uniform(0, 40, (B, ndir, n, n)).astype(np.float32)
-    dphi[..., :32] *= 30.0
+    dphi[..., :32] *= band
     dl = rng.uniform(0, 1, (n, n)).astype(np.float32)
     a2 = (rng.normal(size=(nl, m2, n)) / n).astype(np.float32)
     alpha = (-0.1 * (1.0 + 0.38 * np.linspace(0, 1, nl))).astype(np.float32)
@@ -235,3 +236,109 @@ def test_anchor_operands_match_jax_coefficients():
         assert np.allclose(coef[7 * g:7 * g + 7].numpy(), want, rtol=1e-6,
                            atol=0)
     assert np.all(np.isfinite(coef.numpy()))
+
+
+@pytest.mark.parametrize("ndir", [1, 9])
+def test_plain_k6_high_matches_pallas_high_interpret(ndir):
+    """zoom_precision "high": the plain K6 on two groups of 4 against the
+    TPU kernel's 3-pass bf16 contraction in interpret mode, one call per
+    group, and nearer to it than the plain "highest" is; and within 5e-7
+    of the float64 sum of its own bf16 products.
+
+    Against JAX the limit is 4e-6 x max|U|: on these inputs the plain
+    version lies 1.2-1.6e-7 from the float64 sum of its products, while
+    the interpret-mode "high" lies 1.2e-6 (ndir 9) to 3.4e-6 (ndir 1) from
+    it; the two "highest" agree to 9e-8-1.9e-7, so the gap is in how XLA on
+    the CPU carries out the split, not in G."""
+    dphi, dl, a2, centre, _, _ = _kernel_inputs(B=1, ndir=ndir, nl=8,
+                                                n=128, m2=32, band=1.0)
+    alpha = (-0.1 * (1.0 + 0.38 * np.linspace(0, 1, 8))).astype(np.float32)
+    astar = np.float32([0.5 * (alpha[i:i + 4].min() + alpha[i:i + 4].max())
+                        for i in (0, 4)])
+    rho1 = alpha / np.repeat(astar, 4) - np.float32(1.0)
+    coef = np.stack([rho1 ** j / factorial(j) for j in range(9)],
+                    axis=1).astype(np.float32)
+    t = [torch.as_tensor(x) for x in (dphi, dl, a2, centre, astar, coef)]
+    high = tzoom.fused_exp_zoom_anchor_reference(*t, 4,
+                                                 precision="high").numpy()
+    full = tzoom.fused_exp_zoom_anchor_reference(*t, 4).numpy()
+    for g in (0, 1):
+        sl = slice(4 * g, 4 * g + 4)
+        want = np.asarray(jzoom.fused_exp_zoom_anchor(
+            jnp.asarray(dphi[0] - centre[0][:, None, None]), jnp.asarray(dl),
+            jnp.asarray(a2[sl]), astar[g], coef[sl], tile_j=128,
+            precision="high", degree=8, interpret=True))
+        scale = np.abs(want).max()
+        err = np.abs(high[0, sl] - want).max() / scale
+        err_full = np.abs(full[0, sl] - want).max() / scale
+        assert err <= 4e-6, err
+        assert err < err_full, (err, err_full)
+        # G of the group, as the plain version builds it, and the float64
+        # sum of the three passes' bf16 products
+        x = astar[g] * (t[0][0] - t[3][0][:, None, None])
+        pw = [torch.exp(x)]
+        for _ in range(8):
+            pw.append(pw[-1] * x)
+        hs = [p.sum(0) if ndir > 1 else p[0] for p in pw]
+        gl = []
+        for c in t[5][sl]:
+            acc = c[0] * hs[0]
+            for j in range(1, 9):
+                acc = acc + c[j] * hs[j]
+            gl.append(acc * t[1])
+        a_hi, a_lo = (p.double() for p in tzoom.split_bf16(t[2][sl]))
+        g_hi, g_lo = (p.double() for p in tzoom.split_bf16(torch.stack(gl)))
+        exact = (a_hi @ g_hi + a_hi @ g_lo + a_lo @ g_hi).numpy()
+        assert np.abs(high[0, sl] - exact).max() <= \
+            5e-7 * np.abs(exact).max()
+
+
+def test_cpu_wrapper_runs_plain_k6_at_each_precision():
+    dphi, dl, a2, centre, astar, coef = (
+        torch.as_tensor(x) for x in _kernel_inputs(B=1, ndir=2, nl=3,
+                                                   n=64, m2=16))
+    args = (dphi, dl, a2, centre, astar.reshape(1), coef, 3)
+    before = (tzoom.ANCHOR_LAUNCHES, tzoom.TC_ANCHOR_LAUNCHES)
+    for prec in ("high", "highest"):
+        assert torch.equal(
+            tzoom.fused_exp_zoom_anchor(*args, precision=prec),
+            tzoom.fused_exp_zoom_anchor_reference(*args, precision=prec))
+    assert not torch.equal(
+        tzoom.fused_exp_zoom_anchor(*args, precision="high"),
+        tzoom.fused_exp_zoom_anchor(*args))
+    assert (tzoom.ANCHOR_LAUNCHES, tzoom.TC_ANCHOR_LAUNCHES) == before
+    for bad in ("default", "fp32"):
+        with pytest.raises(ValueError, match="zoom precision"):
+            tzoom.fused_exp_zoom_anchor(*args, precision=bad)
+        with pytest.raises(ValueError, match="zoom precision"):
+            tzoom.fused_exp_zoom_anchor_reference(*args, precision=bad)
+
+
+def test_anchored_chunk_precision_follows_the_device(monkeypatch):
+    """The anchored chunk hands K6 the precision of its device: the
+    config's on CUDA (the device seen by ``_zoom_precision`` is
+    monkeypatched, since the CPU has no card) and "highest" on the
+    CPU."""
+    base = torch.as_tensor(_tiny_base())[None]
+    lb = np.array([760.0, 800.0, 840.0])
+    npx = torch.as_tensor(tpsf.lambda_crop_size(lb, TTINY))
+    tlb = torch.as_tensor(lb, dtype=torch.float32)
+    seen = []
+    real_k6 = tzoom.fused_exp_zoom_anchor
+
+    def spy(*a, precision="highest"):
+        seen.append(precision)
+        return real_k6(*a, precision=precision)
+
+    monkeypatch.setattr(tzoom, "fused_exp_zoom_anchor", spy)
+    for prec in ("high", "highest"):
+        cfg = TTINY.with_(zoom_anchor="on", zoom_precision=prec)
+        tpsf._psf_chunk_fused(base, tlb, npx, cfg)
+    assert seen == ["highest", "highest"]
+    real_prec = tpsf._zoom_precision
+    monkeypatch.setattr(tpsf, "_zoom_precision",
+                        lambda cfg, device: real_prec(cfg, "cuda"))
+    for prec in ("high", "highest"):
+        cfg = TTINY.with_(zoom_anchor="on", zoom_precision=prec)
+        tpsf._psf_chunk_fused(base, tlb, npx, cfg)
+    assert seen[2:] == ["high", "highest"]

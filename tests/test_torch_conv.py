@@ -107,3 +107,27 @@ def test_cpu_wrapper_is_the_plain_version():
     assert torch.equal(got, tchain.fused_conv_chain_reference(planes,
                                                               *spectra, 9))
     assert tchain.LAUNCHES == before
+
+
+@pytest.mark.parametrize("n_img", [40, 8, 3])
+def test_trimmed_mats_are_blocks_of_the_dft_pair(n_img):
+    """K2's six trimmed matrices are sub-blocks of the symmetric DFT pair
+    C, S of ``_dft_mats_np(L)``, and each is a row slice of one of the two
+    pairs the CUDA kernel stages (C/S[:n, :] and C/S[:, off:off+n]), by the
+    symmetry it relies on."""
+    n_ker = n_img + (n_img % 2 == 0)      # as convolve_final makes it
+    L = tconv._same_fft_size(n_img, n_ker)
+    off = (n_ker - 1) // 2
+    c, s = tconv._dft_mats_np(L)
+    assert np.array_equal(c, c.T) and np.array_equal(s, s.T)
+    csn, crc, crs, csel, cdc, cds = tchain._trimmed_mats(L, n_img, off)
+    assert np.array_equal(csn, np.concatenate([c[:, :n_img], s[:, :n_img]]))
+    assert np.array_equal(crc, c[:n_img]) and np.array_equal(crs, s[:n_img])
+    assert np.array_equal(csel, np.concatenate([c[off:off + n_img],
+                                                s[off:off + n_img]]))
+    assert np.array_equal(cdc, c[:, off:off + n_img])
+    assert np.array_equal(cds, s[:, off:off + n_img])
+    # what the kernel reads instead: transposes of its two staged pairs
+    assert np.array_equal(csn, np.concatenate([crc.T, crs.T]))
+    assert np.array_equal(csel, np.concatenate([cdc.T, cds.T]))
+    assert off + n_img <= L

@@ -1,10 +1,10 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on
 the card (K1, K3, K5 and K6 <= 1e-5, K2 <= 1e-6 relative max-abs; K3
 against K1 <= 2e-6, and bit-identical on a rerun), K1 on a strided
-structure function, the tensor-core body of zoom_precision "high" against
-its 3-pass plain version (<= 2e-6: the same bf16 products summed in
-another order) and against the FMA body, and the batch night through the
-kernels.  Marked ``cuda``:
+structure function, the tensor-core bodies of zoom_precision "high" (K1,
+K3, K5 and K6) against their 3-pass plain versions (<= 2e-6: the same
+bf16 products summed in another order) and against the FMA bodies, and
+the batch night through the kernels.  Marked ``cuda``:
 skipped where no CUDA card is present (CUDA kernels have no CPU mode).
 On a GPU machine:
 
@@ -231,6 +231,44 @@ def test_anchor_kernel_matches_plain(dev, ndir):
         zoom_dft.fused_exp_zoom_anchor(*args[:4], args[4][:2], args[5], 9)
 
 
+@pytest.mark.parametrize("ndir", [1, 9])
+def test_tc_anchor_kernel_matches_plain_high(dev, ndir):
+    """K6 at "high" on tensor cores, on the inputs of the float32 test
+    (groups of 4 with a ragged last one, two 160-row blocks, a partial
+    16-column tile) and on a strided view: against its 3-pass plain version
+    <= 2e-6 of max|U|, against the FMA body <= 2e-5 (the split's own error
+    on these cancelling random inputs); counted on its own counter only;
+    bit-identical on a rerun."""
+    from math import factorial
+    g = torch.Generator(device="cpu").manual_seed(4)
+    B, n, ncols, m2, nl, k, deg = 2, 256, 200, 200, 10, 4, 8
+    dphi = torch.rand((B, ndir, n, ncols + 8), generator=g) * 1000
+    dl = torch.rand((n, ncols), generator=g)
+    a2 = torch.randn((nl, m2, n), generator=g) / n
+    centre = dphi.amin(dim=(2, 3)).contiguous()
+    alpha = -0.1 * (1.0 + 0.5 * torch.linspace(0, 1, nl))
+    astar = torch.stack([0.5 * (alpha[i:i + k].min() + alpha[i:i + k].max())
+                         for i in range(0, nl, k)])
+    rho1 = alpha / torch.repeat_interleave(astar, k)[:nl] - 1.0
+    coef = torch.stack([rho1 ** j / factorial(j) for j in range(deg + 1)],
+                       dim=1) / ndir
+    args = [x.to(dev) for x in (dphi, dl, a2, centre, astar, coef)]
+    for view in (args[0][..., :ncols].contiguous(), args[0][..., 8:]):
+        a6 = [view] + args[1:]
+        before = _build.launch_counts()
+        got = zoom_dft.fused_exp_zoom_anchor(*a6, k, precision="high")
+        assert _build.launch_counts() == dict(
+            before, zoom_dft_tc_anchor=before["zoom_dft_tc_anchor"] + 1)
+        assert _rel(got, zoom_dft.fused_exp_zoom_anchor_reference(
+            view.contiguous(), *args[1:], k, precision="high")) <= 2e-6
+        assert _rel(got, zoom_dft.fused_exp_zoom_anchor(*a6, k)) <= 2e-5
+        assert torch.equal(got, zoom_dft.fused_exp_zoom_anchor(
+            *a6, k, precision="high"))
+    with pytest.raises(ValueError, match="at most"):
+        zoom_dft.fused_exp_zoom_anchor(*args[:4], args[4][:2], args[5], 9,
+                                       precision="high")
+
+
 @pytest.mark.parametrize("B,nl,n", [(2, 3, 8), (3, 35, 40)])
 def test_conv_kernel_matches_plain(dev, B, nl, n):
     g = torch.Generator(device="cpu").manual_seed(1)
@@ -263,8 +301,8 @@ def test_night_runs_both_kernels(dev):
 
 
 def test_anchored_night_runs_k6(dev):
-    """zoom_anchor="on" forced at TINY, npsflin=2: K6 runs and the night
-    matches the CPU run of the same config."""
+    """zoom_anchor="on" forced at TINY, npsflin=2: K6 runs on the body of
+    zoom_precision and the night matches the CPU run of the same config."""
     from muse_psfr_tpu_torch.parallel.batch import process_batch
     cfg = TINY_CONFIG.with_(use_fft=False, zoom_anchor="on")
     args = ([1.0, 0.8], [0.7, 0.5], [25.0, 14.0], np.ones((2, 4)),
@@ -272,6 +310,7 @@ def test_anchored_night_runs_k6(dev):
     _build.reset_launch_counts()
     _, psf_mean, _ = process_batch(*args, npsflin=2, cfg=cfg, chunk=2,
                                    device="cuda")
-    assert _build.launch_counts()["zoom_dft_anchor"] > 0
+    counts = _build.launch_counts()
+    assert counts["zoom_dft_tc_anchor"] > 0 and counts["zoom_dft_anchor"] == 0
     ref = process_batch(*args, npsflin=2, cfg=cfg, chunk=2, device="cpu")
     assert np.abs(psf_mean - ref[1]).max() <= 1e-5 * np.abs(ref[1]).max()

@@ -53,7 +53,8 @@ def test_cpu_tensors_take_the_plain_path_without_launching():
     assert _build.launch_counts() == before
     assert set(before) == {"zoom_dft", "zoom_dft_rowsplit", "zoom_dft_disc",
                            "zoom_dft_tc", "zoom_dft_tc_rowsplit",
-                           "zoom_dft_tc_disc", "zoom_dft_anchor", "conv_dft"}
+                           "zoom_dft_tc_disc", "zoom_dft_anchor",
+                           "zoom_dft_tc_anchor", "conv_dft"}
     assert before["zoom_dft"] == zoom_dft.LAUNCHES
     assert before["zoom_dft_rowsplit"] == zoom_dft.ROWSPLIT_LAUNCHES
     assert before["zoom_dft_disc"] == zoom_dft.DISC_LAUNCHES
@@ -61,6 +62,7 @@ def test_cpu_tensors_take_the_plain_path_without_launching():
     assert before["zoom_dft_tc_rowsplit"] == zoom_dft.TC_ROWSPLIT_LAUNCHES
     assert before["zoom_dft_tc_disc"] == zoom_dft.TC_DISC_LAUNCHES
     assert before["zoom_dft_anchor"] == zoom_dft.ANCHOR_LAUNCHES
+    assert before["zoom_dft_tc_anchor"] == zoom_dft.TC_ANCHOR_LAUNCHES
     assert before["conv_dft"] == conv_dft.LAUNCHES
 
 
@@ -103,12 +105,14 @@ def test_reset_launch_counts():
     zoom_dft.ROWSPLIT_LAUNCHES = 5
     zoom_dft.DISC_LAUNCHES, zoom_dft.ANCHOR_LAUNCHES = 6, 7
     zoom_dft.TC_LAUNCHES, zoom_dft.TC_ROWSPLIT_LAUNCHES = 8, 9
-    zoom_dft.TC_DISC_LAUNCHES = 10
+    zoom_dft.TC_DISC_LAUNCHES, zoom_dft.TC_ANCHOR_LAUNCHES = 10, 11
     assert _build.launch_counts() == {"zoom_dft": 3, "zoom_dft_rowsplit": 5,
                                       "zoom_dft_disc": 6, "zoom_dft_tc": 8,
                                       "zoom_dft_tc_rowsplit": 9,
                                       "zoom_dft_tc_disc": 10,
-                                      "zoom_dft_anchor": 7, "conv_dft": 4}
+                                      "zoom_dft_anchor": 7,
+                                      "zoom_dft_tc_anchor": 11,
+                                      "conv_dft": 4}
     _build.reset_launch_counts()
     assert set(_build.launch_counts().values()) == {0}
-    assert len(_build.launch_counts()) == 8
+    assert len(_build.launch_counts()) == 9
