@@ -10,6 +10,10 @@ Run from the repository root on a machine with a CUDA card:
                                               # 9-direction night
     python3 chip_smoke.py --profile-anchor OUT  # and for it with
                                               # zoom_anchor="auto"
+    python3 chip_smoke.py --profile-default OUT # and for the 1-direction
+                                              # night at the default config
+    python3 chip_smoke.py --profile-sweep OUT # and for the 32 x 32 sweep's
+                                              # rows at the default config
 
 Phases (any failure raises, so the exit code is non-zero):
 
@@ -73,11 +77,38 @@ Phases (any failure raises, so the exit code is non-zero):
 12. a forced redo: a pinned 128-px window too small for the ultra-weak
     damping row (0.2", 0.01, 30 m) at 930 nm trips the window guard, and
     the redone cube equals the full-window one to <= 2e-6 abs;
-13. one JSON line of per-kernel results, each with its launches on the
-    path that runs it (the default nights for the tensor-core body and
-    K2, the "highest" nights for the FMA body, the switch nights for K5
-    and K6, each on the body of its night's precision; every one must be
-    > 0) and its bound (the larger of its bytes
+13. the default config (``GalacsiConfig()``: ``use_fft=True``, so the
+    cuFFT route instead of K2): the 1-direction night again, the
+    tensor-core K1 launched and K2 not, mean PSF within 1e-5 relative and
+    per-row FWHM/beta within 1e-3 of the FFT-free night's; the golden row
+    (rms <= 1e-5); five warmed nights in turns with the FFT-free night;
+    the same for the 9-direction night with three warmed nights of each;
+14. ``compute_psf_from_sparta`` on the 100-row night written as a
+    SPARTA_ATM_DATA file (laser 4 of a masked row carries an outlier L0,
+    so the validation decides three-laser mode), 35 wavelengths, chunk
+    50: the five HDUs, FIT_ROWS bookkeeping, the derived telemetry
+    (<= 1e-12), the three-laser rows, PSF_MEAN against a direct
+    ``process_batch`` on the same items (<= 1e-6 relative), FIT_MEAN as
+    the host float64 refit, a bit-exact file round trip, K1 launched on
+    the tensor cores and K2 not; three warmed calls;
+15. the CLI itself, ``muse_psfr_tpu_torch.cli.main`` on ``--values
+    1,0.7,25`` in process (K3 launched on the tensor cores) and once as
+    ``python3 -m muse_psfr_tpu_torch`` in a subprocess: the log file
+    holds the exact block, the output file opens; ``--values 1,0.7,1000``
+    exits with "No results";
+16. the 32 x 32 x 1 ``condition_sweep`` (1024 rows x 35 wavelengths,
+    chunk 64) with a checkpoint: shapes, every fit finite, the grid point
+    nearest (1.0, 0.7) against a one-row ``compute_psf`` there (<= 1e-3
+    relative), 1024 rows done in the sidecar, a ``resume=True`` call that
+    launches nothing and returns the same arrays, the ``save_sweep`` round
+    trip; wall time with and without the checkpoint, guard trips;
+17. one JSON line of per-kernel results, each with its launches on the
+    path that runs it (the FFT-free default nights for the tensor-core
+    body and K2, the "highest" nights for the FMA body, the switch nights
+    for K5 and K6, each on the body of its night's precision; every one
+    must be > 0; ``user_layer_launches`` on K1 and K3 "high" and on K2
+    gives their counts on the paths of phases 13-16, K2's all 0) and its
+    bound (the larger of its bytes
     over 3.35 TB/s and its operations, each over its unit's peak: fp32
     FLOPs over 67 TFLOP/s, bf16 tensor-core FLOPs over 989 TFLOP/s,
     exponentials over the SFU's 16 a clock per SM), from this run's
@@ -95,6 +126,7 @@ import logging
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -103,6 +135,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "tests", "data")
 GOLDEN = os.path.join(DATA, "golden_psf_35l_s1.0_gl0.7_l025.npy")
 CLI_BLOCK = ("FWHM 0.85 0.73 0.62", "BETA 2.73 2.55 2.23")
+CLI_LOG = ["-" * 68, "Sparta Seeing: 1.00 arcsec GL: 0.70 L0:25.00 m",
+           "LBDA 5000 7000 9000", *CLI_BLOCK, "-" * 68]
+RESULT_HDUS = ["PRIMARY", "SPARTA_ATM_DATA", "FIT_ROWS", "FIT_MEAN",
+               "PSF_MEAN"]
 LBDA = np.linspace(490, 930, 35)
 ZOOM_SRC = "muse_psfr_tpu_torch/csrc/zoom_dft.cu"
 TC_SRC = "muse_psfr_tpu_torch/csrc/zoom_dft_tc.cu"
@@ -584,6 +620,7 @@ def warmed_nights(process_batch, rows, night, card, label, n=5):
     dt = float(np.median(walls))
     print(f"{label} warmed x{n}: wall {' '.join(f'{t:.4f}' for t in walls)}"
           f" s; median {dt:.4f} s, {len(rows[0]) / dt:.2f} rows/s ({card})")
+    return dt
 
 
 def zoom_key(cfg, kind=""):
@@ -624,10 +661,10 @@ def cli_block(cfg):
 def main_path(torch, cfg, rows, card):
     """The 1-direction bench night through the auto planner, counted;
     golden row; CLI block (counted).  Returns the counts of the night and
-    of the CLI block, the night's arguments and its mean PSF."""
+    of the CLI block, the night's arguments and its (mean PSF, unpacked
+    fits)."""
     from muse_psfr_tpu_torch.ops import _build
-    from muse_psfr_tpu_torch.parallel.batch import (process_batch,
-                                                    reconstruct_batch)
+    from muse_psfr_tpu_torch.parallel.batch import process_batch
     night = dict(lbda=LBDA, npsflin=1, cfg=cfg, chunk=50, device="cuda")
     check_plan(rows, night, "golden_plan_night100.json")
 
@@ -649,15 +686,8 @@ def main_path(torch, cfg, rows, card):
     warmed_nights(process_batch, rows, dict(night, _force_full=True), card,
                   "1-direction night, full window", n=1)
 
-    cube = reconstruct_batch(*(a[:1] for a in rows), lbda=LBDA, cfg=cfg,
-                             chunk=1, device="cuda")[0]
-    rms = float(np.sqrt(np.mean((cube.astype(np.float64)
-                                 - np.load(GOLDEN)) ** 2)))
-    print(f"golden row (1.0, 0.7, 25), auto-planned: rms {rms:.3e} vs the "
-          "float64 oracle (limit 1e-5)")
-    if not rms <= 1e-5:
-        raise RuntimeError(f"golden rms {rms} over the 1e-5 budget")
-    return counts, cli_block(cfg), night, psf_mean
+    golden_rms(cfg, rows, "auto-planned")
+    return counts, cli_block(cfg), night, (psf_mean, unpacked)
 
 
 def highest_night(cfg, rows, card, high_mean):
@@ -874,6 +904,364 @@ def forced_redo(cfg, guard_log):
         raise RuntimeError(f"the redone cube is off by {err}")
 
 
+def golden_rms(cfg, rows, label):
+    """The pinned row through ``reconstruct_batch`` at ``cfg`` against the
+    float64 oracle cube."""
+    from muse_psfr_tpu_torch.parallel.batch import reconstruct_batch
+    cube = reconstruct_batch(*(a[:1] for a in rows), lbda=LBDA, cfg=cfg,
+                             chunk=1, device="cuda")[0]
+    rms = float(np.sqrt(np.mean((cube.astype(np.float64)
+                                 - np.load(GOLDEN)) ** 2)))
+    print(f"golden row (1.0, 0.7, 25), {label}: rms {rms:.3e} vs the "
+          "float64 oracle (limit 1e-5)")
+    if not rms <= 1e-5:
+        raise RuntimeError(f"golden rms {rms} over the 1e-5 budget")
+
+
+def default_config_night(cfg, rows, card, guard_log, fft_free, exact,
+                         label, golden, warm):
+    """The night ``fft_free`` (``process_batch`` arguments at
+    ``use_fft=False``) again at ``cfg``, the default config a user gets
+    (``use_fft=True``: the cuFFT route, K2 never launched), counted,
+    against the FFT-free night's ``exact`` (mean PSF, unpacked fits); then
+    ``warm`` warmed nights of each, in turns."""
+    from muse_psfr_tpu_torch.ops import _build
+    from muse_psfr_tpu_torch.parallel.batch import process_batch
+    if not cfg.use_fft or fft_free["cfg"].use_fft:
+        raise RuntimeError("the default config must take the FFT route")
+    night = dict(fft_free, cfg=cfg)
+    check_plan(rows, night, golden)
+    guard_log.trips.clear()
+    _build.reset_launch_counts()
+    fit, psf_mean, fit_mean = process_batch(*rows, **night)
+    counts = _build.launch_counts()
+    print(f"{label} at the default config (use_fft=True, zoom_precision="
+          f"{cfg.zoom_precision}): launches {counts}; window-guard trips: "
+          f"{len(guard_log.trips)}")
+    if counts["zoom_dft_tc"] < 1 or counts["conv_dft"] != 0:
+        raise RuntimeError(f"{label}: K1 must run on the tensor cores and "
+                           f"K2 not at all: {counts}")
+    no_disc_or_anchor(counts, label)
+    on_one_body(counts, cfg.zoom_precision, label)
+    got = check_fits(fit, len(rows[0]), psf_mean, fit_mean)
+    if psf_mean.dtype != np.float32:
+        raise RuntimeError(f"the FFT route left float32: {psf_mean.dtype}")
+    compare_nights(f"{label}, default config against FFT-free", psf_mean,
+                   got, *exact)
+    walls = {"use_fft=True": [], "use_fft=False": []}
+    for _ in range(warm):
+        for key, kw in (("use_fft=True", night), ("use_fft=False", fft_free)):
+            t0 = time.perf_counter()
+            process_batch(*rows, **kw)
+            walls[key].append(time.perf_counter() - t0)
+    print(f"{label} warmed x{warm} in turns: " + "; ".join(
+        f"{k} wall {' '.join(f'{t:.4f}' for t in v)} s, median "
+        f"{float(np.median(v)):.4f} s, "
+        f"{len(rows[0]) / float(np.median(v)):.2f} rows/s"
+        for k, v in walls.items()) + f" ({card})")
+    return counts
+
+
+def sparta_table(fits, rows):
+    """The night's telemetry as a SPARTA_ATM_DATA table: every laser of a
+    row carries the row's values, and laser 4 of a row whose mask drops
+    it carries an outlier L0 of 150 m (as ``create_sparta_table(
+    bad_l0=True)`` does), so the validation decides three-laser mode."""
+    seeing, GL, L0, mask = rows
+    names = [f"LGS{k}_{col}" for k in range(1, 5)
+             for col in ("SEEING", "TUR_GND", "L0")]
+    arr = np.empty(len(seeing), dtype=np.dtype([(n, "f8") for n in names]))
+    for k in range(1, 5):
+        arr[f"LGS{k}_SEEING"] = seeing
+        arr[f"LGS{k}_TUR_GND"] = GL
+        arr[f"LGS{k}_L0"] = L0
+    arr["LGS4_L0"][mask[:, 3] == 0.0] = 150.0
+    return fits.BinTableHDU(data=arr, name="SPARTA_ATM_DATA")
+
+
+class ApiLog(logging.Handler):
+    """Collects the API's INFO lines while the package's own stream
+    handler is held at WARNING (a 100-row file logs some 200 lines)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        self.stream = logging.getLogger("muse_psfr").handlers[0]
+        self.level = self.stream.level
+        self.stream.setLevel(logging.WARNING)
+        logging.getLogger("muse_psfr.api").addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        logging.getLogger("muse_psfr.api").removeHandler(self)
+        self.stream.setLevel(self.level)
+
+
+def same_table(a, b):
+    return (a.dtype == b.dtype and len(a) == len(b)
+            and all(a[k].tobytes() == b[k].tobytes() for k in a.dtype.names))
+
+
+def sparta_file_path(cfg, rows, card, tmp):
+    """``compute_psf_from_sparta`` on the 100-row night written as a
+    SPARTA file, at the default config on the card, counted."""
+    from muse_psfr_tpu_torch import compute_psf_from_sparta
+    from muse_psfr_tpu_torch.fit.moffat_fit import fit_moffat_cube_host64
+    from muse_psfr_tpu_torch.io import fits
+    from muse_psfr_tpu_torch.ops import _build
+    from muse_psfr_tpu_torch.parallel.batch import process_batch
+    seeing, GL, L0, mask = rows
+    n, nl = len(seeing), LBDA.size
+    path = os.path.join(tmp, "sparta_night.fits")
+    fits.HDUList([fits.PrimaryHDU(), sparta_table(fits, rows)]).writeto(path)
+
+    kw = dict(lmin=490, lmax=930, nl=35, chunk=50, cfg=cfg, device="cuda")
+    _build.reset_launch_counts()
+    with ApiLog() as log:
+        res = compute_psf_from_sparta(path, **kw)
+    counts = _build.launch_counts()
+    print(f"compute_psf_from_sparta on {n} rows x {nl} wavelengths, chunk "
+          f"50, default config: launches {counts}")
+    if counts["zoom_dft_tc"] < 1 or counts["conv_dft"] != 0:
+        raise RuntimeError(f"the SPARTA file: K1 must run on the tensor "
+                           f"cores and K2 not at all: {counts}")
+    no_disc_or_anchor(counts, "the SPARTA file")
+    on_one_body(counts, cfg.zoom_precision, "the SPARTA file")
+
+    if [h.name for h in res] != RESULT_HDUS:
+        raise RuntimeError(f"HDUs {[h.name for h in res]}")
+    fit_rows = res["FIT_ROWS"].data
+    if not (len(fit_rows) == n * nl and np.array_equal(
+            fit_rows["row_idx"], np.repeat(np.arange(1, n + 1), nl))
+            and set(fit_rows["lgs_idx"]) == {-1}
+            and np.array_equal(fit_rows["lbda"], np.tile(LBDA, n))):
+        raise RuntimeError("FIT_ROWS bookkeeping is off")
+    derived = max(float(np.abs(fit_rows[k][::nl] - want).max())
+                  for k, want in (("SEEING", seeing), ("GL", GL), ("L0", L0)))
+    three = sorted(int(m.split("/")[0]) - 1 for m in log.lines
+                   if "Using only 3 values out of 4" in m)
+    n_three = sum(m == "Using three lasers mode" for m in log.lines)
+    masked = np.nonzero(mask[:, 3] == 0.0)[0].tolist()
+    print(f"derived seeing/GL/L0 within {derived:.3e} of the night's "
+          f"(limit 1e-12); three-laser rows {three} (masked {masked})")
+    if not (derived <= 1e-12 and three == masked and n_three == len(masked)
+            and log.lines[0] == f"Processing SPARTA table with {n} values, "
+            "njobs=-1 ..."):
+        raise RuntimeError("the telemetry validation departs from the night")
+    if not np.all(np.isfinite(fit_rows["fwhm"])) or not fit_rows["ok"].all():
+        raise RuntimeError("FIT_ROWS holds a failed fit")
+
+    _, direct_mean, _ = process_batch(seeing, GL, L0, mask, lbda=LBDA, cfg=cfg,
+                                      chunk=50, device="cuda")
+    mean = res["PSF_MEAN"].data
+    rel = float(np.abs(mean - direct_mean).max() / np.abs(direct_mean).max())
+    refit = fit_moffat_cube_host64(mean)
+    fit_mean = res["FIT_MEAN"].data
+    hdr = res["FIT_MEAN"].header
+    med = [float(np.median(a)) for a in (seeing, GL, L0)]
+    print(f"PSF_MEAN {mean.dtype} {mean.shape}: relative max-abs {rel:.3e} "
+          f"from a direct process_batch on the same rows (limit 1e-6); "
+          f"FIT_MEAN header {hdr['SEEING']:.4f} {hdr['GL']:.4f} "
+          f"{hdr['L0']:.4f}")
+    if not (mean.dtype == np.float64 and mean.shape == (nl, 40, 40)
+            and rel <= 1e-6):
+        raise RuntimeError(f"PSF_MEAN departs from the direct night: {rel}")
+    if not (np.array_equal(fit_mean["n"], refit["n"])
+            and np.array_equal(fit_mean["fwhm"],
+                               refit["fwhm"] * cfg.pixscale)
+            and np.allclose([hdr["SEEING"], hdr["GL"], hdr["L0"]], med,
+                            rtol=1e-12, atol=0)):
+        raise RuntimeError("FIT_MEAN is not the float64 host refit of "
+                           "PSF_MEAN with the night's medians")
+
+    out = os.path.join(tmp, "night_result.fits")
+    res.writeto(out, overwrite=True)
+    back = fits.fits_open(out)
+    size = os.path.getsize(out)
+    same = ([h.name for h in back] == RESULT_HDUS and all(
+        same_table(res[k].data, back[k].data)
+        for k in ("SPARTA_ATM_DATA", "FIT_ROWS", "FIT_MEAN"))
+        and back["PSF_MEAN"].data.tobytes() == mean.tobytes())
+    print(f"result file: {size} bytes = {size // 2880} x 2880 + "
+          f"{size % 2880}; every column read back bit for bit: {same}")
+    if not same or size % 2880:
+        raise RuntimeError("the result file does not round-trip")
+
+    walls = []
+    with ApiLog():
+        for _ in range(3):
+            t0 = time.perf_counter()
+            compute_psf_from_sparta(path, **kw)
+            walls.append(time.perf_counter() - t0)
+    dt = float(np.median(walls))
+    print(f"compute_psf_from_sparta warmed x3: wall "
+          f"{' '.join(f'{t:.4f}' for t in walls)} s; median {dt:.4f} s, "
+          f"{n / dt:.2f} rows/s ({card})")
+    return counts
+
+
+def read_lines(path):
+    with open(path) as fh:
+        return fh.read().splitlines()
+
+
+def real_cli(cfg, tmp):
+    """The CLI on ``--values 1,0.7,25``: ``cli.main`` in process, counted,
+    and ``python3 -m muse_psfr_tpu_torch`` in a subprocess; then the "No
+    results" exit."""
+    from muse_psfr_tpu_torch import cli
+    from muse_psfr_tpu_torch.io.fits import fits_open
+    from muse_psfr_tpu_torch.ops import _build
+    logfile, outfile = (os.path.join(tmp, n) for n in ("cli.log",
+                                                       "cli.fits"))
+    argv = ["--values", "1,0.7,25", "--no-color", "-o", outfile, "--logfile",
+            logfile]
+    _build.reset_launch_counts()
+    cli.main(argv)
+    counts = _build.launch_counts()
+    lines = read_lines(logfile)
+    print(f"cli.main({argv[:3]}) launches {counts}; log file:\n"
+          + "\n".join(lines[2:]))
+    if lines[2:] != CLI_LOG:
+        raise RuntimeError(f"the CLI's block {lines[2:]} != {CLI_LOG}")
+    if counts["zoom_dft_tc_rowsplit"] < 1 or counts["conv_dft"] != 0:
+        raise RuntimeError(f"the CLI: K3 must run on the tensor cores and "
+                           f"K2 not at all: {counts}")
+    no_disc_or_anchor(counts, "the CLI")
+    on_one_body(counts, cfg.zoom_precision, "the CLI")
+    if [h.name for h in fits_open(outfile)] != RESULT_HDUS:
+        raise RuntimeError("the CLI's output file lacks an HDU")
+
+    sublog, subout = (os.path.join(tmp, n) for n in ("sub.log", "sub.fits"))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "muse_psfr_tpu_torch", "--values", "1,0.7,25",
+         "--no-color", "-o", subout, "--logfile", sublog], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=600)
+    print(f"python3 -m muse_psfr_tpu_torch --values 1,0.7,25: exit "
+          f"{out.returncode} in {time.perf_counter() - t0:.1f} s (a fresh "
+          f"process)")
+    if out.returncode != 0:
+        raise RuntimeError(f"the CLI subprocess failed:\n{out.stdout}\n"
+                           f"{out.stderr}")
+    if read_lines(sublog)[2:] != CLI_LOG or \
+            "[INFO] " + CLI_BLOCK[0] not in out.stdout:
+        raise RuntimeError(f"the CLI subprocess printed {out.stdout}")
+    if [h.name for h in fits_open(subout)] != RESULT_HDUS:
+        raise RuntimeError("the subprocess's output file lacks an HDU")
+
+    try:
+        cli.main(["--values", "1,0.7,1000", "--no-color", "--logfile",
+                  os.path.join(tmp, "none.log")])
+    except SystemExit as exc:
+        print(f"--values 1,0.7,1000 exits with {exc.code!r}")
+        if exc.code != "No results":
+            raise RuntimeError(f"wrong exit: {exc.code!r}")
+    else:
+        raise RuntimeError("all-invalid telemetry did not exit")
+    return counts
+
+
+def sweep_path(cfg, card, guard_log, tmp):
+    """The 32 x 32 x 1 condition sweep at the default config with a
+    checkpoint, counted; its resume, ``save_sweep``, and the wall time
+    with and without the checkpoint."""
+    from muse_psfr_tpu_torch import (compute_psf, condition_sweep, fits_open,
+                                     save_sweep)
+    from muse_psfr_tpu_torch.ops import _build
+    sv, gv = np.linspace(0.6, 1.6, 32), np.linspace(0.3, 0.9, 32)
+    ckpt = os.path.join(tmp, "sweep.npy")
+    kw = dict(lbda=LBDA, chunk=64, cfg=cfg, device="cuda")
+    guard_log.trips.clear()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = condition_sweep(sv, gv, [25.0], checkpoint=ckpt, **kw)
+    wall_first = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    trips = len(guard_log.trips)
+    print(f"condition_sweep 32 x 32 x 1 x {LBDA.size} wavelengths, chunk 64, "
+          f"checkpointed: launches {counts}; window-guard trips: {trips}")
+    if counts["zoom_dft_tc"] < 1 or counts["conv_dft"] != 0:
+        raise RuntimeError(f"the sweep: K1 must run on the tensor cores and "
+                           f"K2 not at all: {counts}")
+    no_disc_or_anchor(counts, "the sweep")
+    on_one_body(counts, cfg.zoom_precision, "the sweep")
+    shape = (32, 32, 1, LBDA.size)
+    if res["fwhm"].shape != shape or res["beta"].shape != shape:
+        raise RuntimeError(f"sweep shapes {res['fwhm'].shape}")
+    if not (np.all(np.isfinite(res["fwhm"]))
+            and np.all(np.isfinite(res["beta"]))):
+        raise RuntimeError("the sweep holds a non-finite fit")
+    print(f"sweep FWHM {res['fwhm'].min():.3f}-{res['fwhm'].max():.3f} "
+          f"arcsec, beta {res['beta'].min():.3f}-{res['beta'].max():.3f}; "
+          f"{int((~res['fit']['ok']).sum())} of {res['fit']['ok'].size} "
+          "plane fits not converged")
+
+    i, j = int(np.argmin(np.abs(sv - 1.0))), int(np.argmin(np.abs(gv - 0.7)))
+    one, _ = compute_psf(LBDA, sv[i], gv[j], 25.0, verbose=False, cfg=cfg,
+                         device="cuda")
+    dfw = float(np.max(np.abs(res["fwhm"][i, j, 0] / one["fwhm"][:, 0] - 1)))
+    dn = float(np.max(np.abs(res["beta"][i, j, 0] / one["n"] - 1)))
+    print(f"grid point ({sv[i]:.4f}, {gv[j]:.4f}, 25) against a one-row "
+          f"compute_psf: FWHM {dfw:.3e}, beta {dn:.3e} relative (limit "
+          f"1e-3)")
+    if not (dfw <= 1e-3 and dn <= 1e-3):
+        raise RuntimeError("the sweep departs from compute_psf")
+
+    with open(ckpt + ".meta.json") as fh:
+        done = json.load(fh)["done"]
+    if done != list(range(1024)):
+        raise RuntimeError(f"the sidecar lists {len(done)} done rows")
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    again = condition_sweep(sv, gv, [25.0], checkpoint=ckpt, resume=True,
+                            **kw)
+    wall_resume = time.perf_counter() - t0
+    resumed = _build.launch_counts()
+    print(f"sidecar: {len(done)} rows done; resume=True in "
+          f"{wall_resume:.4f} s, launches {resumed}")
+    if any(resumed.values()) or not (
+            np.array_equal(again["fwhm"], res["fwhm"])
+            and np.array_equal(again["beta"], res["beta"])):
+        raise RuntimeError("the resumed sweep recomputed or changed rows")
+
+    out = os.path.join(tmp, "sweep.fits")
+    save_sweep(res, out)
+    back = fits_open(out)
+    grid = back["GRID"].data
+    if not ([h.name for h in back] == ["PRIMARY", "FWHM", "BETA", "GRID"]
+            and np.array_equal(back["FWHM"].data, res["fwhm"])
+            and np.array_equal(back["BETA"].data, res["beta"])
+            and np.array_equal(grid["SEEING"][0][:32], sv)
+            and np.array_equal(grid["GL"][0][:32], gv)
+            and grid["L0"][0][0] == 25.0
+            and np.array_equal(grid["LBDA"][0][:LBDA.size], LBDA)
+            and os.path.getsize(out) % 2880 == 0):
+        raise RuntimeError("save_sweep does not round-trip")
+
+    walls = {"no checkpoint": [], "checkpoint": []}
+    for k in range(2):
+        t0 = time.perf_counter()
+        condition_sweep(sv, gv, [25.0], **kw)
+        walls["no checkpoint"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        condition_sweep(sv, gv, [25.0],
+                        checkpoint=os.path.join(tmp, f"timed{k}.npy"), **kw)
+        walls["checkpoint"].append(time.perf_counter() - t0)
+    print(f"sweep wall: first (checkpointed) {wall_first:.4f} s; warmed in "
+          "turns: " + "; ".join(
+              f"{k} {' '.join(f'{t:.4f}' for t in v)} s, "
+              f"{1024 / min(v):.2f} rows/s at best" for k, v in walls.items())
+          + f"; guard trips {trips} ({card})")
+    return counts
+
+
 def profile_night(torch, rows, night, path):
     """torch.profiler table of one warmed night, printed and written to
     ``path``."""
@@ -901,6 +1289,12 @@ def main(argv):
     parser.add_argument("--profile-anchor", metavar="OUT",
                         help="also profile one warmed 9-direction night "
                              "with zoom_anchor=\"auto\"")
+    parser.add_argument("--profile-default", metavar="OUT",
+                        help="also profile one warmed 1-direction night at "
+                             "the default config (use_fft=True)")
+    parser.add_argument("--profile-sweep", metavar="OUT",
+                        help="also profile process_batch on the 32 x 32 "
+                             "sweep's 1024 rows at the default config")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -976,8 +1370,8 @@ def main(argv):
     k2 = check_conv_kernel(torch, cfg, dev, rows)
     k5, k6, t5, t6 = check_disc_anchor_kernels(torch, cfg, dev, rows)
 
-    counts, cli_counts, night, mean1 = main_path(torch, cfg, rows, card)
-    counts_fma, cli_fma = highest_night(fma, rows, card, mean1)
+    counts, cli_counts, night, exact1 = main_path(torch, cfg, rows, card)
+    counts_fma, cli_fma = highest_night(fma, rows, card, exact1[0])
     counts9, night9, exact9 = ndir9_path(torch, cfg, rows, card, guard_log)
     counts9_fma, exact9_fma = ndir9_highest(fma, rows, card, exact9)
     counts_disc = disc_night(cfg, rows, card, exact9)
@@ -986,6 +1380,20 @@ def main(argv):
     counts_anchor_fma = anchor_night(fma, rows, card, guard_log,
                                      exact9_fma, warm=0, golden=False)
     forced_redo(cfg, guard_log)
+
+    # the user layer at the config a user gets (use_fft=True)
+    user_cfg = GalacsiConfig()
+    user = {"night1": default_config_night(
+        user_cfg, rows, card, guard_log, night, exact1, "1-direction night",
+        "golden_plan_night100.json", warm=5)}
+    golden_rms(user_cfg, rows, "default config (use_fft=True)")
+    user["night9"] = default_config_night(
+        user_cfg, rows, card, guard_log, night9, exact9, "9-direction night",
+        "golden_plan_night100_npsflin3.json", warm=3)
+    with tempfile.TemporaryDirectory() as tmp:
+        user["sparta_file"] = sparta_file_path(user_cfg, rows, card, tmp)
+        user["cli"] = real_cli(user_cfg, tmp)
+        user["sweep"] = sweep_path(user_cfg, card, guard_log, tmp)
     k1["launches"] = counts_fma["zoom_dft"]
     k1_9["launches"] = counts9_fma["zoom_dft"]
     k3["launches"] = k3_cli["launches"] = cli_fma["zoom_dft_rowsplit"]
@@ -997,6 +1405,9 @@ def main(argv):
     t1_9["launches"] = counts9["zoom_dft_tc"]
     t3["launches"] = t3_cli["launches"] = cli_counts["zoom_dft_tc_rowsplit"]
     t5["launches"] = counts_disc["zoom_dft_tc_disc"]
+    for rec, key in ((t1, "zoom_dft_tc"), (t3_cli, "zoom_dft_tc_rowsplit"),
+                     (k2, "conv_dft")):
+        rec["user_layer_launches"] = {p: c[key] for p, c in user.items()}
     kernels = [k1, k1_9, k3, k3_cli, k2, k5, k6, t1, t1_9, t3, t3_cli, t5,
                t6]
     idle = [k["name"] for k in kernels if k["launches"] < 1]
@@ -1009,6 +1420,15 @@ def main(argv):
     if args.profile_anchor:
         profile_night(torch, rows, dict(night9, cfg=cfg.with_(
             zoom_anchor="auto")), args.profile_anchor)
+    if args.profile_default:
+        profile_night(torch, rows, dict(night, cfg=user_cfg),
+                      args.profile_default)
+    if args.profile_sweep:
+        grid = np.meshgrid(np.linspace(0.6, 1.6, 32),
+                           np.linspace(0.3, 0.9, 32), [25.0], indexing="ij")
+        profile_night(torch, [g.ravel() for g in grid] + [np.ones((1024, 4))],
+                      dict(lbda=LBDA, cfg=user_cfg, chunk=64, device="cuda"),
+                      args.profile_sweep)
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

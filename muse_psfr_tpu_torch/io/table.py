@@ -1,13 +1,14 @@
-"""Lightweight column table (pure numpy).
+"""Lightweight column table with FITS round-trip (pure numpy).
 
 Copy of ``muse_psfr_tpu/io/table.py`` (the ``astropy.table.Table`` usage of
-the reference: fit-result tables and vstack, psfrec.py:866-871,
+the reference: fit-result tables, vstack, table_to_hdu; psfrec.py:866-871,
 1086-1112): an ordered mapping of equal-length numpy columns plus a
-``meta`` dict.  The FITS round-trip (``to_hdu``/``from_hdu``) comes with
-the port of the FITS layer (ROADMAP.md, Queue 1).
+``meta`` dict that lands in the FITS header.
 """
 
 import numpy as np
+
+from .fits import BinTableHDU, Header
 
 
 class FitTable:
@@ -54,6 +55,37 @@ class FitTable:
     def remove_columns(self, names):
         for n in names:
             self._cols.pop(n, None)
+
+    # -- FITS ------------------------------------------------------------------
+    def to_hdu(self, name=""):
+        dt = []
+        for k, v in self._cols.items():
+            base = v.dtype
+            if v.ndim > 1:
+                dt.append((k, base, v.shape[1:]))
+            else:
+                dt.append((k, base))
+        arr = np.empty(len(self), dtype=np.dtype(dt))
+        for k, v in self._cols.items():
+            arr[k] = v
+        hdr = Header()
+        for k, v in self.meta.items():
+            hdr[k] = v
+        return BinTableHDU(data=arr, name=name, header=hdr)
+
+    @classmethod
+    def from_hdu(cls, hdu):
+        t = cls()
+        data = hdu.data
+        for k in data.dtype.names:
+            t._cols[k] = np.array(data[k])
+        skip = ("XTENSION", "BITPIX", "NAXIS", "NAXIS1", "NAXIS2", "PCOUNT",
+                "GCOUNT", "TFIELDS", "EXTNAME")
+        for k, v in hdu.header.items():
+            if k in skip or k.startswith(("TTYPE", "TFORM", "TDIM")):
+                continue
+            t.meta[k] = v
+        return t
 
     @classmethod
     def vstack(cls, tables):

@@ -90,6 +90,25 @@ def test_cuda_request_without_cuda_raises():
                             cfg=TINY_CONFIG)       # device defaults to cuda
 
 
+def test_user_entry_points_raise_without_a_card(tmp_path, monkeypatch):
+    """``compute_psf_from_sparta``, ``condition_sweep`` and the CLI pass
+    their default device down unchanged: no card, no result."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from muse_psfr_tpu_torch import api, cli
+    from muse_psfr_tpu_torch.io.fits import HDUList
+    from muse_psfr_tpu_torch.io.sparta import create_sparta_table
+    with pytest.raises(RuntimeError, match="cuda"):
+        api.compute_psf_from_sparta(HDUList([create_sparta_table()]),
+                                    lbda=[800.0], cfg=TINY_CONFIG)
+    with pytest.raises(RuntimeError, match="cuda"):
+        api.condition_sweep([0.8, 1.0], [0.7], [25.0], lbda=[800.0],
+                            cfg=TINY_CONFIG)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["--values", "1,0.7,25", "--no-color"])
+
+
 def test_float64_with_fused_kernels_on_cuda_is_refused():
     cfg64 = TINY_CONFIG.with_(dtype="float64")
     with pytest.raises(ValueError, match="float32"):
