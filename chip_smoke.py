@@ -14,49 +14,59 @@ Run from the repository root on a machine with a CUDA card:
                                               # night at the default config
     python3 chip_smoke.py --profile-sweep OUT # and for the 32 x 32 sweep's
                                               # rows at the default config
+    python3 chip_smoke.py --profile-highest OUT --profile-ndir9-highest OUT
+                                              # and for the 1- and the
+                                              # 9-direction night at
+                                              # zoom_precision="highest"
 
 Phases (any failure raises, so the exit code is non-zero):
 
 1. the card's name and power limit (``nvidia-smi``); CUDA required;
 2. build the hand-written kernels from ``muse_psfr_tpu_torch/csrc``
    (ptxas registers and spills printed);
-3. the FMA body of K1 (zoom_precision "highest") against its plain
-   PyTorch version at the production grid, structure function (1, 1280,
-   768) per row: 2 rows x 12 wavelengths, then one main-path chunk of 50
-   rows x 35 wavelengths; then K1 at ndir=9 (K1', K4) on 4 rows x 35
-   wavelengths; relative max-abs <= 1e-5 of max|U|;
-4. K3 on the FMA body (K1 over R contraction-row slices, summed in order)
-   against its plain version (<= 1e-5) and against K1 (<= 1e-6) at the
+3. K1 at zoom_precision "highest" (six bf16 passes on the tensor cores,
+   the TPU's ``Precision.HIGHEST``) against its plain PyTorch version at
+   the production grid, structure function (1, 1280, 768) per row: 2 rows
+   x 12 wavelengths, then one main-path chunk of 50 rows x 35 wavelengths
+   (there also against float64 on its worst row, <= 6.663e-06 of that
+   row's max|U|, the float32 FMA body's distance, and against the plain
+   six-pass product); then K1 at ndir=9 (K1', K4) on 4 rows x 35
+   wavelengths; relative max-abs <= 1e-6 of max|U|; each beside the
+   float32 FMA body that ran "highest" before
+   (``tools/fma_bodies/zoom_dft_fma.cu``, built apart from the package):
+   its distances and the two bodies' times in turns (old, new, new, old);
+4. K3 at "highest" (K1 over R contraction-row slices, summed in order)
+   against its plain version (<= 1e-6) and against K1 (<= 1e-6) at the
    TPU's shape (ndir=9, 1280 rows, R=2, 4 rows x 35 wavelengths) and at
    the CLI block's (1 row, 3 wavelengths, the S=256 window, R from
-   ``_zoom_row_splits``);
-5. the tensor-core body ("high", the default: 3-pass bf16) at the same
-   four shapes against its 3-pass plain version (<= 2e-6 of max|U|), with
-   its error against exact float32 K1 (the FMA body), its time, TFLOP/s
-   and bound;
+   ``_zoom_row_splits``), beside the FMA body as in 3;
+5. the same body at "high" (the default: 3-pass bf16) at the same four
+   shapes against its 3-pass plain version (<= 2e-6 of max|U|), with its
+   error against K1 at "highest", its time, TFLOP/s and bound;
 6. K2 (convolution chain) against its plain version at 50 rows x 35
    planes of 40 x 40 (transform size 64); relative max-abs <= 1e-6; both
    and the cuFFT route against the float64 chain (printed); the time of
    K2 beside that of the cuFFT route, which the default ``use_fft=True``
    takes instead;
-7. K5 (the diffraction-disc skip) and K6 (the anchored-Taylor damping) on
-   both bodies on the full window (4 rows x 35 wavelengths x 9
-   directions, (1280, 768)): K5 against its plain version (<= 1e-6 on the
-   FMA body, <= 2e-6 on the tensor cores) and against K1 of its body on
-   the same inputs with the real block mask (<= 1e-6 of max|U|), K6
-   against its plain version (<= 1e-6 on the FMA body, <= 2e-6 of max|U|
-   on the tensor cores against the 3-pass plain version) and against
-   exact K1 (within ndir x the certified bound x max row-L1(A2) + 1e-5 of
-   max|U|), with the times of each;
+7. K5 (the diffraction-disc skip) and K6 (the anchored-Taylor damping) at
+   both precisions on the full window (4 rows x 35 wavelengths x 9
+   directions, (1280, 768)): K5 against its plain version (<= 1e-6 at
+   "highest", <= 2e-6 at "high") and against K1 at its precision on the
+   same inputs with the real block mask (<= 1e-6 of max|U|), K6 against
+   its plain version (<= 1e-6 at "highest", <= 2e-6 of max|U| at "high"
+   against the 3-pass plain version) and against K1 at "highest" (within
+   ndir x the certified bound x max row-L1(A2) + 1e-5 of max|U|), with
+   the times of each; K5 and K6 at "highest" beside the float32 FMA
+   bodies (``tools/fma_bodies/``), distances and times in turns;
 8. the 1-direction bench night (100 rows x 35 wavelengths, 490-930 nm,
    chunk=50, FFT-free config, zoom_precision "high") through the auto
    planner: the plan equals ``tests/data/golden_plan_night100.json``,
-   launch counts (the tensor-core body only), finite and converged fits,
+   launch counts (three-pass launches only), finite and converged fits,
    five warmed nights and one warmed night with every row on the full
    window; the pinned row (1.0", 0.7, 25 m) against the float64 golden
    PSF (rms <= 1e-5); the CLI result block, exact, with K3 launched in
-   it; then the same night and CLI block at "highest" (the FMA body only;
-   mean PSF within 1e-5 relative of the "high" night);
+   it; then the same night, golden row and CLI block at "highest" (six-pass
+   launches only; mean PSF within 1e-5 relative of the "high" night);
 9. the 9-direction night (npsflin=3, 100 rows, chunk=44): the plan
    equals ``golden_plan_night100_npsflin3.json``, launch counts, fits,
    the mean PSF against the same night on the full window (relative
@@ -64,22 +74,22 @@ Phases (any failure raises, so the exit code is non-zero):
    trips, five warmed nights and one warmed full-window night; then the
    night at "highest" against the night at "high" (mean PSF <= 1e-5,
    FWHM/beta <= 1e-3);
-10. the same night with ``disc_skip=True`` on each body: K5 launched,
+10. the same night with ``disc_skip=True`` at each precision: K5 launched,
     mean PSF within 1e-6 relative of the exact night; five warmed nights
     at "high";
 11. the same night with ``zoom_anchor="auto"``: the plan (which groups
-    resolved to "on"), K6 launched on the tensor cores only, mean PSF
+    resolved to "on"), K6 launched with three passes only, mean PSF
     within 1e-5 relative and per-row FWHM/beta within 1e-3 of the exact
     night, 0 guard trips; five warmed nights; the golden row at npsflin=1
     with the anchor forced (rms <= 1e-5); then the anchored night at
-    "highest", the FMA body of K6 only, against the exact night at
+    "highest", K6 with six passes only, against the exact night at
     "highest";
 12. a forced redo: a pinned 128-px window too small for the ultra-weak
     damping row (0.2", 0.01, 30 m) at 930 nm trips the window guard, and
     the redone cube equals the full-window one to <= 2e-6 abs;
 13. the default config (``GalacsiConfig()``: ``use_fft=True``, so the
     cuFFT route instead of K2): the 1-direction night again, the
-    tensor-core K1 launched and K2 not, mean PSF within 1e-5 relative and
+    three-pass K1 launched and K2 not, mean PSF within 1e-5 relative and
     per-row FWHM/beta within 1e-3 of the FFT-free night's; the golden row
     (rms <= 1e-5); five warmed nights in turns with the FFT-free night;
     the same for the 9-direction night with three warmed nights of each;
@@ -90,9 +100,9 @@ Phases (any failure raises, so the exit code is non-zero):
     (<= 1e-12), the three-laser rows, PSF_MEAN against a direct
     ``process_batch`` on the same items (<= 1e-6 relative), FIT_MEAN as
     the host float64 refit, a bit-exact file round trip, K1 launched on
-    the tensor cores and K2 not; three warmed calls;
+    "high" and K2 not; three warmed calls;
 15. the CLI itself, ``muse_psfr_tpu_torch.cli.main`` on ``--values
-    1,0.7,25`` in process (K3 launched on the tensor cores) and once as
+    1,0.7,25`` in process (K3 launched at "high") and once as
     ``python3 -m muse_psfr_tpu_torch`` in a subprocess: the log file
     holds the exact block, the output file opens; ``--values 1,0.7,1000``
     exits with "No results";
@@ -103,20 +113,21 @@ Phases (any failure raises, so the exit code is non-zero):
     launches nothing and returns the same arrays, the ``save_sweep`` round
     trip; wall time with and without the checkpoint, guard trips;
 17. one JSON line of per-kernel results, each with its launches on the
-    path that runs it (the FFT-free default nights for the tensor-core
-    body and K2, the "highest" nights for the FMA body, the switch nights
-    for K5 and K6, each on the body of its night's precision; every one
+    path that runs it (the FFT-free default nights for the three-pass
+    launches and K2, the "highest" nights for the six-pass launches, the
+    switch nights for K5 and K6, each at its night's precision; every one
     must be > 0; ``user_layer_launches`` on K1 and K3 "high" and on K2
     gives their counts on the paths of phases 13-16, K2's all 0) and its
     bound (the larger of its bytes
     over 3.35 TB/s and its operations, each over its unit's peak: fp32
-    FLOPs over 67 TFLOP/s, bf16 tensor-core FLOPs over 989 TFLOP/s,
-    exponentials over the SFU's 16 a clock per SM), from this run's
-    shapes; the card line, and the final status line ``{"ok": true,
-    "device": {...}}``.
+    FLOPs over 67 TFLOP/s, bf16 tensor-core FLOPs (three or six passes)
+    over 989 TFLOP/s, exponentials over the SFU's 16 a clock per SM), from
+    this run's shapes; ``fma_body_ms`` on the "highest" records is the FMA
+    body's time in turns; the card line, and the final status line
+    ``{"ok": true, "device": {...}}``.
 
-The default-config nights must launch neither K5 nor K6, and no night at
-"high" may launch the FMA body.
+The default-config nights must launch neither K5 nor K6, and no night
+may launch a kernel of the other precision.
 
 Imports nothing of JAX.
 """
@@ -140,9 +151,7 @@ CLI_LOG = ["-" * 68, "Sparta Seeing: 1.00 arcsec GL: 0.70 L0:25.00 m",
 RESULT_HDUS = ["PRIMARY", "SPARTA_ATM_DATA", "FIT_ROWS", "FIT_MEAN",
                "PSF_MEAN"]
 LBDA = np.linspace(490, 930, 35)
-ZOOM_SRC = "muse_psfr_tpu_torch/csrc/zoom_dft.cu"
 TC_SRC = "muse_psfr_tpu_torch/csrc/zoom_dft_tc.cu"
-ANCHOR_SRC = "muse_psfr_tpu_torch/csrc/zoom_anchor.cu"
 ANCHOR_TC_SRC = "muse_psfr_tpu_torch/csrc/zoom_anchor_tc.cu"
 JAX_ZOOM = "muse_psfr_tpu/ops/zoom_dft.py"
 #: NVIDIA H100 SXM datasheet peaks: fp32 outside the tensor cores, dense
@@ -150,10 +159,13 @@ JAX_ZOOM = "muse_psfr_tpu/ops/zoom_dft.py"
 #: on 132 SMs at the 1.98 GHz boost clock
 PEAK_FP32, PEAK_BF16, HBM = 67e12, 989e12, 3.35e12
 PEAK_EXP = 16 * 132 * 1.98e9
-#: the FMA bodies' launch counters ("highest"), which a night at "high"
-#: must leave at 0
-FMA_ZOOM = ("zoom_dft", "zoom_dft_rowsplit", "zoom_dft_disc",
-            "zoom_dft_anchor")
+#: the launch counters of zoom_precision "highest" (six passes), which a
+#: night at "high" must leave at 0
+HIGHEST_ZOOM = ("zoom_dft", "zoom_dft_rowsplit", "zoom_dft_disc",
+                "zoom_dft_anchor")
+#: the float32 FMA body's distance from float64 on the worst row of the
+#: full-window chunk, which "highest" must not exceed
+FMA_F64_ERR = 6.663e-06
 
 
 def card_line():
@@ -193,13 +205,41 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(torch, fn, reps):
+    """Mean device time of ``fn`` [ms] with the host out of the way:
+    ``reps`` calls captured in one CUDA graph and replayed.  For launches
+    so small that :func:`cuda_ms` times the Python wrapper instead."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(torch, graph.replay, 3) / reps
+
+
+def in_turns(torch, old, new, reps, timer=cuda_ms):
+    """Times [ms] of two bodies on the same inputs, taken in turns: old,
+    new, new, old."""
+    t = [timer(torch, fn, reps) for fn in (old, new, new, old)]
+    return {"old": [t[0], t[3]], "new": [t[1], t[2]]}
+
+
+def fma_bodies():
+    """The float32 FMA bodies that ran "highest" before, built from
+    ``tools/fma_bodies/`` (``tools/ab_zoom_highest.py``)."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import ab_zoom_highest
+    return ab_zoom_highest.FmaBodies()
+
+
 def roofline(label, nbytes, fp32=0.0, tc=0.0, exps=0.0):
     """The least time the card could take for a kernel's work: the larger
     of its bytes (each input read once, each output written once) over
     the memory rate and its operations, each over the peak of the unit
-    that runs them: float32 FLOPs on the CUDA cores, bf16 FLOPs on the
-    tensor cores, exponentials on the SFU.  The units run side by side,
-    so the slowest one bounds the operations."""
+    that runs them: float32 FLOPs on the CUDA cores, bf16 FLOPs (of every
+    pass) on the tensor cores, exponentials on the SFU.  The units run
+    side by side, so the slowest one bounds the operations."""
     t = {"fp32 cores": fp32 / PEAK_FP32 * 1e3,
          "bf16 tensor cores": tc / PEAK_BF16 * 1e3,
          "SFU exp": exps / PEAK_EXP * 1e3}
@@ -218,17 +258,16 @@ def zoom_work(B, ndir, n, ncols, nl, m2, precision, elems=None):
     (all n x ncols by default): per (row, wavelength, direction, element)
     an exponential and three float32 operations (the argument's product
     and sum, the direction sum), then the product with dl; the
-    contraction in float32 ("highest") or as three bf16 passes on the
-    tensor cores ("high")."""
+    contraction as three ("high") or six ("highest") bf16 passes on the
+    tensor cores."""
     elems = n * ncols if elems is None else elems
     contraction = 2.0 * B * nl * m2 * elems
     other = float(B * nl * elems * (3 * ndir + 1))
     work = dict(nbytes=4.0 * (B * ndir * elems + elems + nl * m2 * n + nl
                               + B * nl * ndir + B * nl * m2 * ncols),
                 exps=float(B * nl * ndir * elems))
-    if precision == "high":
-        return dict(work, fp32=other, tc=3 * contraction)
-    return dict(work, fp32=contraction + other)
+    passes = 3 if precision == "high" else 6
+    return dict(work, fp32=other, tc=passes * contraction)
 
 
 def rel_err(torch, got, want):
@@ -270,25 +309,62 @@ def zoom_operands(torch, cfg, dev, rows, nrow, lb, npsflin):
     return base, _dl_window(cfg, dev, torch.float32), a2, alpha, w
 
 
+def worst_row_f64(torch, zoom_dft, args, exp2, bodies, label):
+    """The outputs ``bodies`` {name: U} against float64 on the row where
+    the first two differ most, each relative to that row's max|U|; the
+    plain six-pass product on that row joins them as "six-pass plain"."""
+    names = list(bodies)
+    diff = (bodies[names[0]] - bodies[names[1]]).abs().amax(dim=(1, 2, 3))
+    b = int(torch.argmax(diff))
+    one = [x.double() for x in args]
+    u64 = zoom_dft.fused_exp_zoom_reference(
+        one[0][b:b + 1], *one[1:4], one[4][b:b + 1], exp2=exp2)[0]
+    scale = float(torch.max(torch.abs(u64)))
+    errs = {k: float(torch.max(torch.abs(u[b] - u64))) / scale
+            for k, u in bodies.items()}
+    print(f"{label} row {b} against float64, relative to its max|U|: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    del one, u64
+    return b, errs
+
+
+def six_pass_plain_row(zoom_dft, args, exp2, b):
+    """Row ``b`` of K1 with every 32-row step contracted by the plain
+    six-pass product, summed over the steps as the kernel does."""
+    g = zoom_dft.damped_otf(args[0][b:b + 1], args[1], args[3],
+                            args[4][b:b + 1], exp2)
+    u = None
+    for k in range(0, g.shape[-2], zoom_dft.K_STEP):
+        part = zoom_dft.six_pass_product(
+            args[2][None, :, :, k:k + zoom_dft.K_STEP],
+            g[:, :, k:k + zoom_dft.K_STEP])
+        u = part if u is None else u + part
+    return u
+
+
 def check_zoom_kernel(torch, cfg, dev, rows, nrow, lb, npsflin=1,
-                      row_splits=1, label="K1"):
+                      row_splits=1, label="K1", old=None, f64=False,
+                      device_times=False):
     """K1 (``row_splits=1``) or K3 against its plain version, and K3
-    against K1, on the first ``nrow`` bench rows at ``cfg``'s window, on
-    the body of ``cfg.zoom_precision``: the FMA body ("highest", limit
-    1e-5 of max|U|) or the tensor-core body ("high", limit 2e-6 against
-    the 3-pass plain version; its error against exact float32 K1 is
-    printed)."""
+    against K1, on the first ``nrow`` bench rows at ``cfg``'s window, at
+    ``cfg.zoom_precision``: "highest" (six passes; limit 1e-6 of max|U|)
+    or "high" (three; limit 2e-6 against the 3-pass plain version; its
+    error against K1 at "highest" is printed).  With ``old`` (the float32
+    FMA bodies) at "highest": the FMA body's distances and the two bodies'
+    times in turns; with ``f64`` also both against float64 on their worst
+    row (limit: the FMA body's 6.663e-06); with ``device_times`` also the
+    two bodies' times by CUDA-graph replay, for a launch so small that
+    the host sets the other times (``tools/ab_zoom_highest.py`` asks)."""
     from muse_psfr_tpu_torch.ops import zoom_dft
     args = zoom_operands(torch, cfg, dev, rows, nrow, lb, npsflin)
     base, a2 = args[0], args[2]
     prec = cfg.zoom_precision
     kw = dict(exp2=cfg.zoom_exp2, row_splits=row_splits, precision=prec)
-    limit = 2e-6 if prec == "high" else 1e-5
+    limit = 2e-6 if prec == "high" else 1e-6
     got = zoom_dft.fused_exp_zoom(*args, **kw)
     want = zoom_dft.fused_exp_zoom_reference(*args, **kw)
     torch.cuda.synchronize()
     abs_err, rel = rel_err(torch, got, want)
-    del want
     print(f"{label} fused_exp_zoom(row_splits={row_splits}, precision="
           f"{prec}): dphi {tuple(base.shape)} a2 {tuple(a2.shape)}; max abs "
           f"err {abs_err:.3e}, relative to max|U| {rel:.3e} (limit "
@@ -296,23 +372,42 @@ def check_zoom_kernel(torch, cfg, dev, rows, nrow, lb, npsflin=1,
     if not rel <= limit:
         raise RuntimeError(f"{label} disagrees with its plain version: "
                            f"{rel}")
+    extra = {}
     if prec == "high":
         exact = zoom_dft.fused_exp_zoom(*args, exp2=cfg.zoom_exp2,
                                         row_splits=row_splits)
         torch.cuda.synchronize()
         err_x, rel_x = rel_err(torch, got, exact)
-        print(f"{label} against exact float32 K1 (the FMA body): max abs "
+        print(f"{label} against K1 at highest (six passes): max abs "
               f"{err_x:.3e}, relative to max|U| {rel_x:.3e}")
-        # both bodies against float64 on the row where they differ most
-        b = int(torch.argmax((got - exact).abs().amax(dim=(1, 2, 3))))
-        one = [x.double() for x in args]
-        u64 = zoom_dft.fused_exp_zoom_reference(
-            one[0][b:b + 1], *one[1:4], one[4][b:b + 1], exp2=cfg.zoom_exp2)
-        scale = float(torch.max(torch.abs(u64)))
-        print(f"{label} row {b} against float64, relative to its max|U|: "
-              f"high {float(torch.max(torch.abs(got[b] - u64[0]))) / scale:.3e}"
-              f", highest {float(torch.max(torch.abs(exact[b] - u64[0]))) / scale:.3e}")
-        del exact, one, u64
+        worst_row_f64(torch, zoom_dft, args, cfg.zoom_exp2,
+                      {"high": got, "highest": exact}, label)
+        del exact
+    elif old is not None:
+        fma = old.zoom(*args, exp2=cfg.zoom_exp2, row_splits=row_splits)
+        torch.cuda.synchronize()
+        _, rel_o = rel_err(torch, fma, want)
+        _, rel_on = rel_err(torch, got, fma)
+        print(f"{label} float32 FMA body: relative to max|U| {rel_o:.3e} from "
+              f"the plain version, {rel_on:.3e} from the six-pass body")
+        if f64:
+            b, errs = worst_row_f64(
+                torch, zoom_dft, args, cfg.zoom_exp2,
+                {"highest": got, "FMA body": fma, "plain": want}, label)
+            six = six_pass_plain_row(zoom_dft, args, cfg.zoom_exp2, b)
+            scale = float(torch.max(torch.abs(six)))
+            d6 = float(torch.max(torch.abs(got[b] - six[0]))) / scale
+            dm = float(torch.max(torch.abs(got[b] - want[b]))) / scale
+            print(f"{label} row {b}: the kernel lies {d6:.3e} of max|U| from "
+                  f"the plain six-pass product per step, {dm:.3e} from the "
+                  f"plain float32 matmul per step")
+            if not errs["highest"] <= FMA_F64_ERR:
+                raise RuntimeError(f"{label} at highest is farther from "
+                                   f"float64 than the FMA body was: {errs}")
+            extra["f64_rel_err"] = errs["highest"]
+            del six
+        del fma
+    del want
     if row_splits > 1:
         k1 = zoom_dft.fused_exp_zoom(*args, exp2=cfg.zoom_exp2,
                                      precision=prec)
@@ -328,20 +423,49 @@ def check_zoom_kernel(torch, cfg, dev, rows, nrow, lb, npsflin=1,
         del k1, again
     del got
     reps = max(3, 240 // (nrow * len(lb)))
-    ms = cuda_ms(torch, lambda: zoom_dft.fused_exp_zoom(*args, **kw), reps)
+
+    def new():
+        return zoom_dft.fused_exp_zoom(*args, **kw)
+
+    if prec == "highest" and old is not None:
+        def fma_body():
+            return old.zoom(*args, exp2=cfg.zoom_exp2, row_splits=row_splits)
+
+        turns = in_turns(torch, fma_body, new, reps)
+        ms = turns["new"][0]
+        extra["fma_body_ms"] = turns["old"][0]
+        print(f"{label} times [ms] in turns: FMA body {turns['old'][0]:.4f}, "
+              f"six-pass {turns['new'][0]:.4f}, six-pass "
+              f"{turns['new'][1]:.4f}, FMA body {turns['old'][1]:.4f}")
+        if ms < 0.2:
+            print(f"{label}: a launch this small takes the host longer to "
+                  "issue than the card to run, so these are the host's "
+                  "times, and the FMA body is called without the wrapper's "
+                  "checks; tools/ab_zoom_highest.py times the device alone")
+        if device_times:
+            dev_t = in_turns(torch, fma_body, new, reps, graph_ms)
+            extra["device_ms"] = dev_t["new"][0]
+            extra["fma_body_device_ms"] = dev_t["old"][0]
+            print(f"{label} device times [ms] by CUDA-graph replay, in "
+                  f"turns: FMA body {dev_t['old'][0]:.4f}, six-pass "
+                  f"{dev_t['new'][0]:.4f}, six-pass {dev_t['new'][1]:.4f}, "
+                  f"FMA body {dev_t['old'][1]:.4f}")
+    else:
+        ms = cuda_ms(torch, new, reps)
     plain_ms = cuda_ms(torch, lambda: zoom_dft.fused_exp_zoom_reference(
         *args, **kw), reps)
     flop = 2.0 * np.prod(a2.shape) * base.shape[-1] * base.shape[0]
-    passes = (f", {3 * flop / ms / 1e9:.2f} TFLOP/s of bf16 tensor-core "
-              "work" if prec == "high" else "")
+    passes = 3 if prec == "high" else 6
     print(f"{label} time {ms:.4f} ms ({flop / ms / 1e9:.2f} TFLOP/s of "
-          f"contraction{passes}), plain PyTorch {plain_ms:.4f} ms")
+          f"contraction, {passes * flop / ms / 1e9:.2f} TFLOP/s of bf16 "
+          f"tensor-core work in {passes} passes), plain PyTorch "
+          f"{plain_ms:.4f} ms")
     bound = roofline(label, **zoom_work(*base.shape, *a2.shape[:2], prec))
     print(f"{label} at {bound['bound_ms'] / ms:.1%} of its bound")
     del args, base, a2
     torch.cuda.empty_cache()
-    return {"route": "cuda", "source": TC_SRC if prec == "high" else ZOOM_SRC,
-            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, **bound}
+    return {"route": "cuda", "source": TC_SRC, "max_abs_err": abs_err,
+            "ms": ms, "plain_ms": plain_ms, **bound, **extra}
 
 
 def conv_inputs(torch, cfg, dev, rows, B=50):
@@ -430,11 +554,12 @@ def check_conv_kernel(torch, cfg, dev, rows):
             "fft_route_ms": fft_ms, "f64_rel_err": errs["K2"], **bound}
 
 
-def check_disc_anchor_kernels(torch, cfg, dev, rows):
+def check_disc_anchor_kernels(torch, cfg, dev, rows, old):
     """K5 and K6 on the full window (4 rows x 35 wavelengths x 9
     directions): each against its plain version, K5 against K1 and K6
-    against exact K1 on the same inputs, and the times of all three; K5
-    on both bodies (FMA "highest", tensor-core "high")."""
+    against K1 at "highest" on the same inputs, and the times of all
+    three, at both precisions; at "highest" beside the float32 FMA bodies
+    ``old``, distances and times in turns."""
     from muse_psfr_tpu_torch.ops import zoom_dft
     from muse_psfr_tpu_torch.otf.psf import (_anchor_lambda_chunk,
                                              _anchor_operands,
@@ -459,7 +584,14 @@ def check_disc_anchor_kernels(torch, cfg, dev, rows):
           f"K1 {rel51:.3e} (limit 1e-6)")
     if not (rel5 <= 1e-6 and rel51 <= 1e-6):
         raise RuntimeError(f"K5 disagrees: plain {rel5}, K1 {rel51}")
-    del got, want
+    live = torch.as_tensor(zoom_dft.disc_live_rows(mask, n, ncols),
+                           device=dev)
+    fma = old.zoom(*args, exp2=exp2, live=live)
+    torch.cuda.synchronize()
+    print(f"K5 float32 FMA body: relative to max|U| "
+          f"{rel_err(torch, fma, want)[1]:.3e} from the plain version, "
+          f"{rel_err(torch, got, fma)[1]:.3e} from the six-pass body")
+    del got, want, fma
 
     high = dict(exp2=exp2, precision="high")
     k1h = zoom_dft.fused_exp_zoom(*args, **high)
@@ -471,7 +603,7 @@ def check_disc_anchor_kernels(torch, cfg, dev, rows):
     _, rel5x = rel_err(torch, got, k1)
     print(f"K5 at high (tensor cores): max abs err {err5h:.3e}, relative "
           f"to max|U| {rel5h:.3e} (limit 2e-6); against K1 at high "
-          f"{rel51h:.3e} (limit 1e-6); against exact float32 K1 "
+          f"{rel51h:.3e} (limit 1e-6); against K1 at highest "
           f"{rel5x:.3e}")
     if not (rel5h <= 2e-6 and rel51h <= 1e-6):
         raise RuntimeError(f"K5 at high disagrees: plain {rel5h}, K1 "
@@ -497,20 +629,35 @@ def check_disc_anchor_kernels(torch, cfg, dev, rows):
         print(f"K6 fused_exp_zoom_anchor at {prec}: groups of {k}, degree "
               f"{deg}, certified bound {bound:.3e}; max abs err "
               f"{err6[prec]:.3e}, relative to max|U| {rel6:.3e} (limit "
-              f"{limit:g}); against exact K1 {err61:.3e} = "
+              f"{limit:g}); against K1 at highest {err61:.3e} = "
               f"{err61 / scale:.3e} of max|U| (limit {atol:.3e})")
         if not (rel6 <= limit and err61 <= atol):
             raise RuntimeError(f"K6 at {prec} disagrees: plain {rel6}, K1 "
                                f"{err61}")
+        if prec == "highest":
+            fma = old.anchor(*a6)
+            torch.cuda.synchronize()
+            print(f"K6 float32 FMA body: relative to max|U| "
+                  f"{rel_err(torch, fma, want)[1]:.3e} from the plain "
+                  f"version, {rel_err(torch, got, fma)[1]:.3e} from the "
+                  f"six-pass body")
+            del fma
         del got, want
     del k1
 
     reps = 3
     ms1 = cuda_ms(torch, lambda: zoom_dft.fused_exp_zoom(*args, exp2=exp2),
                   reps)
-    ms5 = cuda_ms(torch, lambda: zoom_dft.fused_exp_zoom_disc(
-        *args, mask, exp2=exp2), reps)
-    ms6 = cuda_ms(torch, lambda: zoom_dft.fused_exp_zoom_anchor(*a6), reps)
+    turns5 = in_turns(torch, lambda: old.zoom(*args, exp2=exp2, live=live),
+                      lambda: zoom_dft.fused_exp_zoom_disc(
+                          *args, mask, exp2=exp2), reps)
+    turns6 = in_turns(torch, lambda: old.anchor(*a6),
+                      lambda: zoom_dft.fused_exp_zoom_anchor(*a6), reps)
+    ms5, ms6 = turns5["new"][0], turns6["new"][0]
+    for name, t in (("K5", turns5), ("K6", turns6)):
+        print(f"{name} at highest, times [ms] in turns: FMA body "
+              f"{t['old'][0]:.4f}, six-pass {t['new'][0]:.4f}, six-pass "
+              f"{t['new'][1]:.4f}, FMA body {t['old'][1]:.4f}")
     ms6h = cuda_ms(torch, lambda: zoom_dft.fused_exp_zoom_anchor(
         *a6, precision="high"), reps)
     plain5 = cuda_ms(torch, lambda: zoom_dft.fused_exp_zoom_disc_reference(
@@ -529,13 +676,14 @@ def check_disc_anchor_kernels(torch, cfg, dev, rows):
           f"{plain5:.4f}), K6 {ms6:.4f} ms (plain {plain6:.4f}); at high: "
           f"K1 {ms1h:.4f} ms, K5 {ms5h:.4f} ms (plain {plain5h:.4f}), K6 "
           f"{ms6h:.4f} ms (plain {plain6h:.4f})")
-    live = zoom_dft.disc_live_rows(mask, n, ncols)
+    live = live.cpu().numpy()
     elems = int(np.sum(live[:, 1] - live[:, 0])) * zoom_dft.N_TILE
     ng = astar.shape[0]
     deg1 = deg + 1
-    k5 = dict(name="fused_exp_zoom_disc (K5)", route="cuda",
-              source=ZOOM_SRC, replaces=f"{JAX_ZOOM}:341",
+    k5 = dict(name="fused_exp_zoom_disc (K5, 6-pass bf16 tensor cores)",
+              route="cuda", source=TC_SRC, replaces=f"{JAX_ZOOM}:341",
               max_abs_err=err5, ms=ms5, plain_ms=plain5,
+              fma_body_ms=turns5["old"][0],
               **roofline("K5", **zoom_work(B, ndir, n, ncols, nl, m2,
                                            "highest", elems)))
     k5h = dict(name="fused_exp_zoom_disc@high (K5, 3-pass bf16 tensor "
@@ -546,17 +694,19 @@ def check_disc_anchor_kernels(torch, cfg, dev, rows):
                                                  "high", elems)))
     # per group and direction one exponential and its power sums (deg1
     # products and sums, the shift), per wavelength deg1 products and sums;
-    # the contraction in float32 ("highest") or as three bf16 passes
+    # the contraction as six ("highest") or three ("high") bf16 passes
     nbytes = 4.0 * (B * ndir * n * ncols + n * ncols + nl * m2 * n + B * ndir
                     + ng + nl * deg1 + B * nl * m2 * ncols)
     other = float(B * n * ncols * (ng * ndir * (2 * deg1 + 1)
                                    + nl * 2 * deg1))
     contraction = 2.0 * B * nl * m2 * n * ncols
     exps = float(B * n * ncols * ng * ndir)
-    k6 = dict(name="fused_exp_zoom_anchor (K6 _kernel_anchor)",
-              route="cuda", source=ANCHOR_SRC, replaces=f"{JAX_ZOOM}:206",
-              max_abs_err=err6["highest"], ms=ms6, plain_ms=plain6,
-              **roofline("K6", nbytes, fp32=contraction + other, exps=exps))
+    k6 = dict(name="fused_exp_zoom_anchor (K6 _kernel_anchor, 6-pass bf16 "
+              "tensor cores)", route="cuda", source=ANCHOR_TC_SRC,
+              replaces=f"{JAX_ZOOM}:206,179", max_abs_err=err6["highest"],
+              ms=ms6, plain_ms=plain6, fma_body_ms=turns6["old"][0],
+              **roofline("K6", nbytes, fp32=other, tc=6 * contraction,
+                         exps=exps))
     k6h = dict(name="fused_exp_zoom_anchor@high (K6 _kernel_anchor, 3-pass "
                "bf16 tensor cores)", route="cuda", source=ANCHOR_TC_SRC,
                replaces=f"{JAX_ZOOM}:206,179", max_abs_err=err6["high"],
@@ -576,14 +726,15 @@ def no_disc_or_anchor(counts, label):
         raise RuntimeError(f"{label} launched K5 or K6: {counts}")
 
 
-def on_one_body(counts, precision, label):
-    """A night at "high" launches the tensor-core body and never the FMA
-    body; one at "highest" the other way round."""
-    fma = sum(counts[k] for k in FMA_ZOOM)
-    tc = sum(v for k, v in counts.items() if k.startswith("zoom_dft_tc"))
-    if (precision == "high" and fma) or (precision == "highest" and tc):
-        raise RuntimeError(f"{label} at {precision} launched the other "
-                           f"body: {counts}")
+def only_its_precision(counts, precision, label):
+    """A night at "high" makes three-pass launches (``zoom_dft_tc*``) and
+    never a six-pass one (:data:`HIGHEST_ZOOM`); one at "highest" the
+    other way round."""
+    six = sum(counts[k] for k in HIGHEST_ZOOM)
+    three = sum(v for k, v in counts.items() if k.startswith("zoom_dft_tc"))
+    if (precision == "high" and six) or (precision == "highest" and three):
+        raise RuntimeError(f"{label} at {precision} launched a kernel of "
+                           f"the other precision: {counts}")
 
 
 def check_plan(rows, night, golden):
@@ -624,7 +775,7 @@ def warmed_nights(process_batch, rows, night, card, label, n=5):
 
 
 def zoom_key(cfg, kind=""):
-    """The launch counter of the zoom body ``cfg.zoom_precision`` runs:
+    """The launch counter of the zoom kernel at ``cfg.zoom_precision``:
     ``kind`` "" (K1), "_rowsplit" (K3), "_disc" (K5) or "_anchor" (K6)."""
     return ("zoom_dft_tc" if cfg.zoom_precision == "high"
             else "zoom_dft") + kind
@@ -632,7 +783,7 @@ def zoom_key(cfg, kind=""):
 
 def cli_block(cfg):
     """The CLI's result block (1.0", 0.7, 25 m at 500/700/900 nm), counted;
-    it must be exact and run K3 on the body of ``cfg.zoom_precision``."""
+    it must be exact and run K3 at ``cfg.zoom_precision``."""
     from muse_psfr_tpu_torch.fit.moffat_fit import fit_moffat_cube_host64
     from muse_psfr_tpu_torch.ops import _build
     from muse_psfr_tpu_torch.parallel.batch import process_batch
@@ -654,7 +805,7 @@ def cli_block(cfg):
     if counts[zoom_key(cfg, "_rowsplit")] < 1:
         raise RuntimeError(f"K3 never ran on the CLI block: {counts}")
     no_disc_or_anchor(counts, "the CLI block")
-    on_one_body(counts, cfg.zoom_precision, "the CLI block")
+    only_its_precision(counts, cfg.zoom_precision, "the CLI block")
     return counts
 
 
@@ -677,7 +828,7 @@ def main_path(torch, cfg, rows, card):
     if counts[zoom_key(cfg)] < 1 or counts["conv_dft"] < 1:
         raise RuntimeError(f"a kernel of the night never ran: {counts}")
     no_disc_or_anchor(counts, "the 1-direction night")
-    on_one_body(counts, cfg.zoom_precision, "the 1-direction night")
+    only_its_precision(counts, cfg.zoom_precision, "the 1-direction night")
     unpacked = check_fits(fit, len(rows[0]), psf_mean, fit_mean)
     print(f"all {unpacked['ok'].size} plane fits finite and converged; "
           f"fwhm range {unpacked['fwhm'][..., 0].min() * cfg.pixscale:.3f}"
@@ -691,9 +842,9 @@ def main_path(torch, cfg, rows, card):
 
 
 def highest_night(cfg, rows, card, high_mean):
-    """The 1-direction night at zoom_precision="highest" (the FMA body),
-    counted, against the same night at "high"; then the CLI block at
-    "highest"."""
+    """The 1-direction night at zoom_precision="highest" (six passes),
+    counted, against the same night at "high"; then the golden row and
+    the CLI block at "highest"."""
     from muse_psfr_tpu_torch.ops import _build
     from muse_psfr_tpu_torch.parallel.batch import process_batch
     night = dict(lbda=LBDA, npsflin=1, cfg=cfg, chunk=50, device="cuda")
@@ -704,13 +855,14 @@ def highest_night(cfg, rows, card, high_mean):
     print(f"1-direction night at highest: launches {counts}; the night at "
           f"high departs by {rel:.3e} relative max-abs (limit 1e-5)")
     if counts["zoom_dft"] < 1:
-        raise RuntimeError(f"the FMA body never ran: {counts}")
-    on_one_body(counts, "highest", "the 1-direction night")
+        raise RuntimeError(f"no six-pass launch: {counts}")
+    only_its_precision(counts, "highest", "the 1-direction night")
     check_fits(fit, len(rows[0]), psf_mean, fit_mean)
     if not rel <= 1e-5:
         raise RuntimeError(f"high and highest nights differ by {rel}")
     warmed_nights(process_batch, rows, night, card,
                   "1-direction night at highest", n=3)
+    golden_rms(cfg, rows, "zoom_precision=highest")
     return counts, cli_block(cfg)
 
 
@@ -733,7 +885,7 @@ def ndir9_path(torch, cfg, rows, card, guard_log):
     if counts[zoom_key(cfg)] < 1 or counts["conv_dft"] < 1:
         raise RuntimeError(f"a kernel of the night never ran: {counts}")
     no_disc_or_anchor(counts, "the 9-direction night")
-    on_one_body(counts, cfg.zoom_precision, "the 9-direction night")
+    only_its_precision(counts, cfg.zoom_precision, "the 9-direction night")
     got = check_fits(fit, len(rows[0]), psf_mean, fit_mean)
 
     full = process_batch(*rows, **night, _force_full=True)
@@ -768,7 +920,7 @@ def compare_nights(label, got_mean, got_fit, want_mean, want_fit):
 
 
 def ndir9_highest(cfg, rows, card, high):
-    """The 9-direction night at zoom_precision="highest" (the FMA body),
+    """The 9-direction night at zoom_precision="highest" (six passes),
     counted, against the same night at "high"."""
     from muse_psfr_tpu_torch.ops import _build
     from muse_psfr_tpu_torch.parallel.batch import process_batch
@@ -778,9 +930,9 @@ def ndir9_highest(cfg, rows, card, high):
     counts = _build.launch_counts()
     print(f"9-direction night at highest: launches {counts}")
     if counts["zoom_dft"] < 1:
-        raise RuntimeError(f"the FMA body never ran: {counts}")
+        raise RuntimeError(f"no six-pass launch: {counts}")
     no_disc_or_anchor(counts, "the 9-direction night at highest")
-    on_one_body(counts, "highest", "the 9-direction night")
+    only_its_precision(counts, "highest", "the 9-direction night")
     got = check_fits(fit, len(rows[0]), psf_mean, fit_mean)
     compare_nights("9-direction night at high against highest", high[0],
                    high[1], psf_mean, got)
@@ -791,7 +943,7 @@ def ndir9_highest(cfg, rows, card, high):
 
 def disc_night(cfg, rows, card, exact, warm=5):
     """The 9-direction night with the disc skip on: K5 on the full-window
-    chunks, on the body of ``cfg.zoom_precision``, the mean PSF against
+    chunks, at ``cfg.zoom_precision``, the mean PSF against
     the exact night's at the same precision."""
     from muse_psfr_tpu_torch.ops import _build
     from muse_psfr_tpu_torch.parallel.batch import process_batch
@@ -808,7 +960,7 @@ def disc_night(cfg, rows, card, exact, warm=5):
     if (counts[zoom_key(cfg, "_disc")] < 1 or counts["zoom_dft_anchor"]
             or counts["zoom_dft_tc_anchor"]):
         raise RuntimeError(f"K5 did not run on the disc night: {counts}")
-    on_one_body(counts, cfg.zoom_precision, "the disc night")
+    only_its_precision(counts, cfg.zoom_precision, "the disc night")
     check_fits(fit, len(rows[0]), psf_mean, fit_mean)
     if not rel <= 1e-6:
         raise RuntimeError(f"the disc night departs from the exact: {rel}")
@@ -820,7 +972,7 @@ def disc_night(cfg, rows, card, exact, warm=5):
 
 def anchor_night(cfg, rows, card, guard_log, exact, warm=5, golden=True):
     """The 9-direction night with zoom_anchor="auto": the plan, K6 on the
-    certified groups on the body of ``cfg.zoom_precision`` only, the mean
+    certified groups at ``cfg.zoom_precision`` only, the mean
     PSF and per-row fits against the exact night's at the same precision;
     then the golden row with the anchor forced."""
     from muse_psfr_tpu_torch.ops import _build
@@ -858,7 +1010,7 @@ def anchor_night(cfg, rows, card, guard_log, exact, warm=5, golden=True):
     key = zoom_key(cfg, "_anchor")
     if counts[key] < 1 or counts["zoom_dft_disc"]:
         raise RuntimeError(f"K6 did not run on the anchored night: {counts}")
-    on_one_body(counts, cfg.zoom_precision, "the anchored night")
+    only_its_precision(counts, cfg.zoom_precision, "the anchored night")
     if guard_log.trips:
         raise RuntimeError(f"guard trips on the anchored night: "
                            f"{guard_log.trips}")
@@ -939,10 +1091,10 @@ def default_config_night(cfg, rows, card, guard_log, fft_free, exact,
           f"{cfg.zoom_precision}): launches {counts}; window-guard trips: "
           f"{len(guard_log.trips)}")
     if counts["zoom_dft_tc"] < 1 or counts["conv_dft"] != 0:
-        raise RuntimeError(f"{label}: K1 must run on the tensor cores and "
+        raise RuntimeError(f"{label}: K1 must run at high and "
                            f"K2 not at all: {counts}")
     no_disc_or_anchor(counts, label)
-    on_one_body(counts, cfg.zoom_precision, label)
+    only_its_precision(counts, cfg.zoom_precision, label)
     got = check_fits(fit, len(rows[0]), psf_mean, fit_mean)
     if psf_mean.dtype != np.float32:
         raise RuntimeError(f"the FFT route left float32: {psf_mean.dtype}")
@@ -1031,7 +1183,7 @@ def sparta_file_path(cfg, rows, card, tmp):
         raise RuntimeError(f"the SPARTA file: K1 must run on the tensor "
                            f"cores and K2 not at all: {counts}")
     no_disc_or_anchor(counts, "the SPARTA file")
-    on_one_body(counts, cfg.zoom_precision, "the SPARTA file")
+    only_its_precision(counts, cfg.zoom_precision, "the SPARTA file")
 
     if [h.name for h in res] != RESULT_HDUS:
         raise RuntimeError(f"HDUs {[h.name for h in res]}")
@@ -1130,10 +1282,10 @@ def real_cli(cfg, tmp):
     if lines[2:] != CLI_LOG:
         raise RuntimeError(f"the CLI's block {lines[2:]} != {CLI_LOG}")
     if counts["zoom_dft_tc_rowsplit"] < 1 or counts["conv_dft"] != 0:
-        raise RuntimeError(f"the CLI: K3 must run on the tensor cores and "
+        raise RuntimeError(f"the CLI: K3 must run at high and "
                            f"K2 not at all: {counts}")
     no_disc_or_anchor(counts, "the CLI")
-    on_one_body(counts, cfg.zoom_precision, "the CLI")
+    only_its_precision(counts, cfg.zoom_precision, "the CLI")
     if [h.name for h in fits_open(outfile)] != RESULT_HDUS:
         raise RuntimeError("the CLI's output file lacks an HDU")
 
@@ -1188,10 +1340,10 @@ def sweep_path(cfg, card, guard_log, tmp):
     print(f"condition_sweep 32 x 32 x 1 x {LBDA.size} wavelengths, chunk 64, "
           f"checkpointed: launches {counts}; window-guard trips: {trips}")
     if counts["zoom_dft_tc"] < 1 or counts["conv_dft"] != 0:
-        raise RuntimeError(f"the sweep: K1 must run on the tensor cores and "
+        raise RuntimeError(f"the sweep: K1 must run at high and "
                            f"K2 not at all: {counts}")
     no_disc_or_anchor(counts, "the sweep")
-    on_one_body(counts, cfg.zoom_precision, "the sweep")
+    only_its_precision(counts, cfg.zoom_precision, "the sweep")
     shape = (32, 32, 1, LBDA.size)
     if res["fwhm"].shape != shape or res["beta"].shape != shape:
         raise RuntimeError(f"sweep shapes {res['fwhm'].shape}")
@@ -1295,6 +1447,12 @@ def main(argv):
     parser.add_argument("--profile-sweep", metavar="OUT",
                         help="also profile process_batch on the 32 x 32 "
                              "sweep's 1024 rows at the default config")
+    parser.add_argument("--profile-highest", metavar="OUT",
+                        help="also profile one warmed 1-direction night at "
+                             "zoom_precision=\"highest\"")
+    parser.add_argument("--profile-ndir9-highest", metavar="OUT",
+                        help="also profile one warmed 9-direction night at "
+                             "zoom_precision=\"highest\"")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1324,31 +1482,39 @@ def main(argv):
     logging.getLogger("muse_psfr.batch").addHandler(guard_log)
 
     cfg = GalacsiConfig(use_fft=False)          # zoom_precision "high"
-    fma = cfg.with_(zoom_precision="highest")
+    top = cfg.with_(zoom_precision="highest")
     rows = build_rows(100)
-    # the FMA body ("highest"), as it ran before "high" was ported
-    check_zoom_kernel(torch, fma, dev, rows, 2, LBDA[:12])
-    k1 = dict(name="fused_exp_zoom", replaces=f"{JAX_ZOOM}:124",
-              **check_zoom_kernel(torch, fma, dev, rows, 50, LBDA))
+    t0 = time.perf_counter()
+    old = fma_bodies()
+    print(f"built the float32 FMA bodies of tools/fma_bodies/ in "
+          f"{time.perf_counter() - t0:.1f} s (the yardstick of \"highest\"; "
+          f"the package never launches them)")
+    # "highest": six bf16 passes, beside the FMA body that ran it before
+    check_zoom_kernel(torch, top, dev, rows, 2, LBDA[:12], old=old)
+    k1 = dict(name="fused_exp_zoom (K1 _kernel_dirfull, 6-pass bf16 tensor "
+              "cores)", replaces=f"{JAX_ZOOM}:124,179",
+              **check_zoom_kernel(torch, top, dev, rows, 50, LBDA, old=old,
+                                  f64=True))
     k1_9 = dict(name="fused_exp_zoom@ndir9 (K1' _kernel, K4 "
-                "_kernel_dirblock)", replaces=f"{JAX_ZOOM}:44,85",
-                **check_zoom_kernel(torch, fma, dev, rows, 4, LBDA,
-                                    npsflin=3, label="K1 ndir=9"))
+                "_kernel_dirblock)", replaces=f"{JAX_ZOOM}:44,85,179",
+                **check_zoom_kernel(torch, top, dev, rows, 4, LBDA,
+                                    npsflin=3, label="K1 ndir=9", old=old))
     k3 = dict(name="fused_exp_zoom_rowsplit (K3 _kernel_rowacc)",
-              replaces=f"{JAX_ZOOM}:145",
-              **check_zoom_kernel(torch, fma, dev, rows, 4, LBDA,
-                                  npsflin=3, row_splits=2, label="K3"))
+              replaces=f"{JAX_ZOOM}:145,179",
+              **check_zoom_kernel(torch, top, dev, rows, 4, LBDA,
+                                  npsflin=3, row_splits=2, label="K3",
+                                  old=old))
     lb3 = np.array([500.0, 700.0, 900.0])
     r_cli = _zoom_row_splits(1 * 3 * 6, 512,
                              torch.cuda.get_device_properties(0)
                              .multi_processor_count)
     k3_cli = dict(name="fused_exp_zoom_rowsplit@cli (K3, 1 row x 3 "
                   f"wavelengths, S=256, R={r_cli})",
-                  replaces=f"{JAX_ZOOM}:145",
-                  **check_zoom_kernel(torch, fma.with_(otf_support=256),
+                  replaces=f"{JAX_ZOOM}:145,179",
+                  **check_zoom_kernel(torch, top.with_(otf_support=256),
                                       dev, rows, 1, lb3, row_splits=r_cli,
-                                      label="K3 CLI"))
-    # the tensor-core body ("high", the default) at the same shapes
+                                      label="K3 CLI", old=old))
+    # "high", the default: three passes, at the same shapes
     t1 = dict(name="fused_exp_zoom@high (K1 _kernel_dirfull, 3-pass bf16 "
               "tensor cores)", replaces=f"{JAX_ZOOM}:124,179",
               **check_zoom_kernel(torch, cfg, dev, rows, 50, LBDA,
@@ -1368,17 +1534,17 @@ def main(argv):
                                       dev, rows, 1, lb3, row_splits=r_cli,
                                       label="K3 high CLI"))
     k2 = check_conv_kernel(torch, cfg, dev, rows)
-    k5, k6, t5, t6 = check_disc_anchor_kernels(torch, cfg, dev, rows)
+    k5, k6, t5, t6 = check_disc_anchor_kernels(torch, cfg, dev, rows, old)
 
     counts, cli_counts, night, exact1 = main_path(torch, cfg, rows, card)
-    counts_fma, cli_fma = highest_night(fma, rows, card, exact1[0])
+    counts_top, cli_top = highest_night(top, rows, card, exact1[0])
     counts9, night9, exact9 = ndir9_path(torch, cfg, rows, card, guard_log)
-    counts9_fma, exact9_fma = ndir9_highest(fma, rows, card, exact9)
+    counts9_top, exact9_top = ndir9_highest(top, rows, card, exact9)
     counts_disc = disc_night(cfg, rows, card, exact9)
-    counts_disc_fma = disc_night(fma, rows, card, exact9_fma, warm=0)
+    counts_disc_top = disc_night(top, rows, card, exact9_top, warm=0)
     counts_anchor = anchor_night(cfg, rows, card, guard_log, exact9)
-    counts_anchor_fma = anchor_night(fma, rows, card, guard_log,
-                                     exact9_fma, warm=0, golden=False)
+    counts_anchor_top = anchor_night(top, rows, card, guard_log,
+                                     exact9_top, warm=0, golden=False)
     forced_redo(cfg, guard_log)
 
     # the user layer at the config a user gets (use_fft=True)
@@ -1394,11 +1560,11 @@ def main(argv):
         user["sparta_file"] = sparta_file_path(user_cfg, rows, card, tmp)
         user["cli"] = real_cli(user_cfg, tmp)
         user["sweep"] = sweep_path(user_cfg, card, guard_log, tmp)
-    k1["launches"] = counts_fma["zoom_dft"]
-    k1_9["launches"] = counts9_fma["zoom_dft"]
-    k3["launches"] = k3_cli["launches"] = cli_fma["zoom_dft_rowsplit"]
-    k5["launches"] = counts_disc_fma["zoom_dft_disc"]
-    k6["launches"] = counts_anchor_fma["zoom_dft_anchor"]
+    k1["launches"] = counts_top["zoom_dft"]
+    k1_9["launches"] = counts9_top["zoom_dft"]
+    k3["launches"] = k3_cli["launches"] = cli_top["zoom_dft_rowsplit"]
+    k5["launches"] = counts_disc_top["zoom_dft_disc"]
+    k6["launches"] = counts_anchor_top["zoom_dft_anchor"]
     t6["launches"] = counts_anchor["zoom_dft_tc_anchor"]
     k2["launches"] = counts["conv_dft"]
     t1["launches"] = counts["zoom_dft_tc"]
@@ -1429,6 +1595,11 @@ def main(argv):
         profile_night(torch, [g.ravel() for g in grid] + [np.ones((1024, 4))],
                       dict(lbda=LBDA, cfg=user_cfg, chunk=64, device="cuda"),
                       args.profile_sweep)
+    if args.profile_highest:
+        profile_night(torch, rows, dict(night, cfg=top), args.profile_highest)
+    if args.profile_ndir9_highest:
+        profile_night(torch, rows, dict(night9, cfg=top),
+                      args.profile_ndir9_highest)
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -17,8 +17,11 @@ lanes are listed in :data:`TPU_LAYOUT_ONLY`.
 ``zoom_precision`` chooses how the fused zoom kernels (K1, K3, K5, K6)
 contract on the card (:data:`ZOOM_PRECISIONS`): "high" (the JAX default)
 runs the 3-pass bf16 split ``hi*hi + hi*lo + lo*hi`` with float32
-accumulation on tensor cores, "highest" full float32 FMAs.  The JAX package's "default" (one bf16
-pass) is outside the accuracy budget (``docs/precision.md``) and raises.
+accumulation on tensor cores, "highest" the six bf16 passes of a
+three-part split (``Precision.HIGHEST`` on the TPU's matrix unit), a
+float32-grade product, in the same kernels.  The JAX package's "default"
+(one bf16 pass) is outside the accuracy budget (``docs/precision.md``) and
+raises.
 The other two ``*_precision`` fields are not ported yet
 (:data:`NOT_YET_PORTED`): every other contraction runs in full float32
 (TF32 off, see ``utils/device.py``).
@@ -94,10 +97,11 @@ class GalacsiConfig:
                                # (K1/K3/K5) on the card: "high" = 3-pass
                                # bf16 (hi*hi + hi*lo + lo*hi, float32
                                # accumulation) on tensor cores, "highest" =
-                               # float32 FMAs.  Read only where the kernels
-                               # run: a CPU night contracts in full
-                               # precision, as the JAX package's night off
-                               # the TPU does
+                               # six bf16 passes on a three-part split, a
+                               # float32-grade product.  Read only where
+                               # the kernels run: a CPU night contracts in
+                               # float32 ("highest"), as the JAX package's
+                               # night off the TPU does
     zoom_exp2: bool = True     # damping as exp2(alpha*log2e*D + log2 w)
                                # instead of exp(alpha*D)*w (same math up
                                # to argument rounding)

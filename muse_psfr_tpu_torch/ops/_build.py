@@ -4,7 +4,8 @@ The kernels live in ``muse_psfr_tpu_torch/csrc/*.cu`` with a plain C
 interface.  :func:`library` compiles them on first use with ``nvcc`` for
 ``sm_90a``, one ``nvcc`` process per source, all started together, links
 the objects into one shared library under ``build/muse_psfr_tpu_torch/``
-(named by a hash of the sources and flags, so an edit rebuilds) and loads
+(named by a hash of the sources, their headers and the flags, so an edit
+rebuilds) and loads
 it with ``ctypes``.  Importing this module builds nothing: the CPU tests
 import every module on machines without ``nvcc``.
 
@@ -85,6 +86,11 @@ def sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers():
+    """What the sources include from their own directory."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on first call."""
     global _LIB, BUILD_LOG
@@ -93,7 +99,7 @@ def library() -> ctypes.CDLL:
             return _LIB
         srcs = sources()
         digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for p in srcs:
+        for p in srcs + headers():
             digest.update(p.name.encode() + p.read_bytes())
         so = BUILD_DIR / f"libmuse_psfr_kernels-{digest.hexdigest()[:16]}.so"
         if not so.exists():

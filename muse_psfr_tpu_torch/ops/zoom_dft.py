@@ -11,7 +11,7 @@ diffraction OTF slab, A2_l the stacked [Ar; Ai] zoom-DFT rows of
 wavelength l's crop grid and w the per-direction DC weights.
 
 :func:`fused_exp_zoom` launches the hand-written CUDA kernels
-(``csrc/zoom_dft.cu``; counterpart of
+(``csrc/zoom_dft_tc.cu``; counterpart of
 ``muse_psfr_tpu/ops/zoom_dft.py:fused_exp_zoom``) for CUDA tensors, which
 never write G to device memory; for CPU tensors it runs
 :func:`fused_exp_zoom_reference`, the plain PyTorch version.  Every
@@ -29,11 +29,14 @@ mask, in the same launch.  :func:`fused_exp_zoom_anchor` (K6,
 shared power sums of one anchor exponential.
 
 ``precision`` (``cfg.zoom_precision``) chooses the contraction of every
-one of them, as ``_mxu_contract`` does on the TPU: "high" is the 3-pass
-bf16 split ``a_hi@g_hi + a_hi@g_lo + a_lo@g_hi`` with float32
-accumulation, on tensor cores (``csrc/zoom_dft_tc.cu``, K6
-``csrc/zoom_anchor_tc.cu``); "highest" is full float32 on the FMA bodies
-(``csrc/zoom_dft.cu``, K6 ``csrc/zoom_anchor.cu``).
+one of them, as ``_mxu_contract`` does on the TPU, and both run on tensor
+cores in one body (``csrc/zoom_dft_tc.cu``, K6
+``csrc/zoom_anchor_tc.cu``): "high" is the 3-pass bf16 split
+``a_hi@g_hi + a_hi@g_lo + a_lo@g_hi`` with float32 accumulation;
+"highest" is the TPU's ``Precision.HIGHEST``, six bf16 passes on a
+three-part split (:func:`six_pass_product`), a float32-grade product.
+Either way the kernels sum per :data:`K_STEP` contraction rows and then
+over the steps, and so do the plain versions (:func:`contract`).
 """
 
 import numpy as np
@@ -43,11 +46,11 @@ from . import _build
 from ..config import ZOOM_PRECISIONS
 from ..utils.device import host_const
 
-#: successful launches of the FMA body ("highest") with one row slice
+#: successful launches of the six-pass body ("highest") with one row slice
 #: (K1), with R > 1 row slices and the ordered sum of their partials (K3),
-#: with the diffraction-disc skip (K5, any R); of the tensor-core body
+#: with the diffraction-disc skip (K5, any R); of the three-pass body
 #: ("high") in the same three forms; and of the anchored-Taylor kernel
-#: (K6) on its FMA body ("highest") and on tensor cores ("high"); see
+#: (K6) with six passes ("highest") and with three ("high"); see
 #: ops/_build.py
 LAUNCHES = 0
 ROWSPLIT_LAUNCHES = 0
@@ -58,15 +61,14 @@ TC_DISC_LAUNCHES = 0
 ANCHOR_LAUNCHES = 0
 TC_ANCHOR_LAUNCHES = 0
 
-#: output rows and columns of one CUDA block (``TI``/``TJ`` of both
-#: bodies, csrc/zoom_dft.cu and csrc/zoom_dft_tc.cu)
+#: output rows and columns of one CUDA block (``TI``/``TJ`` of
+#: csrc/zoom_dft_tc.cu)
 M_TILE, N_TILE = 160, 64
-#: contraction rows per step of the tensor-core body (``KS``)
+#: contraction rows per step of the kernels (``KS``)
 K_STEP = 32
 
-#: K6 limits (``KB``/``DMAX`` of csrc/zoom_anchor.cu and
-#: csrc/zoom_anchor_tc.cu): wavelengths per group, whose accumulators a
-#: block keeps in registers, and Taylor degree
+#: K6 limits (``KB``/``DMAX`` of csrc/zoom_anchor_tc.cu): wavelengths per
+#: group, whose A2 tiles a block stages together, and Taylor degree
 ANCHOR_MAX_GROUP, ANCHOR_MAX_DEGREE = 8, 11
 
 _LOG2E = float(np.log2(np.e))
@@ -79,42 +81,106 @@ def check_precision(precision):
                          "is outside the accuracy budget")
 
 
-def split_bf16(x):
-    """The 3-pass split of ``x``: ``hi = bf16(x)``, ``lo = bf16(x - hi)``
-    (round to nearest even, as the kernel's ``__float2bfloat16_rn``), with
-    ``lo = 0`` where ``hi`` is infinite, so that no NaN is made."""
-    hi = x.to(torch.bfloat16)
-    lo = torch.where(torch.isinf(hi), torch.zeros_like(x),
-                     x - hi.to(x.dtype)).to(torch.bfloat16)
-    return hi, lo
+def split_bf16(x, parts=2):
+    """The bf16 split of ``x`` in ``parts`` parts: ``p0 = bf16(x)``,
+    ``p1 = bf16(x - p0)``, ``p2 = bf16(x - p0 - p1)`` (round to nearest
+    even, as the kernels' ``__float2bfloat16_rn``), with every later part 0
+    where ``p0`` is infinite, so that no NaN is made.  Two parts are the
+    3-pass split of "high" (16 significant bits); three carry 3 x 8 = 24,
+    so they sum back to a float32 ``x`` bit for bit as long as the last
+    part stays in the normal range (below it, it is a subnormal bf16
+    value or zero: a loss under 2^-126)."""
+    out = [x.to(torch.bfloat16)]
+    rest = torch.where(torch.isinf(out[0]), torch.zeros_like(x),
+                       x - out[0].to(x.dtype))
+    for _ in range(parts - 1):
+        out.append(rest.to(torch.bfloat16))
+        rest = rest - out[-1].to(x.dtype)
+    return tuple(out)
+
+
+def six_pass_product(a, g):
+    """``a @ g`` as the "highest" kernels form it within one step of at
+    most :data:`K_STEP` contraction rows (``Precision.HIGHEST`` on the
+    TPU's matrix unit): the three-part bf16 split of both operands and the
+    six products of order up to two, the five small ones summed first,
+    ``(a0@g2 + a1@g1 + a2@g0 + a0@g1 + a1@g0) + a0@g0``, each product
+    exact in float32 and the sums in float32.  The dropped terms are
+    ~2^-24 relative.  It documents the kernel's arithmetic for the tests
+    and for ``chip_smoke.py``; :func:`contract` does not call it."""
+    a0, a1, a2 = (p.to(g.dtype) for p in split_bf16(a, 3))
+    g0, g1, g2 = (p.to(g.dtype) for p in split_bf16(g, 3))
+    small = (torch.matmul(a0, g2) + torch.matmul(a1, g1)
+             + torch.matmul(a2, g0) + torch.matmul(a0, g1)
+             + torch.matmul(a1, g0))
+    return torch.matmul(a0, g0) + small
 
 
 def contract(a2, g, precision="highest"):
-    """``a2 @ g`` at ``precision``: full precision, or for "high" the sum
+    """``a2 @ g`` at ``precision``, in the kernels' order of sums: the
+    product of each :data:`K_STEP` contraction rows, then a running
+    float32 sum over the steps.  Within a step "high" is the sum
     ``a_hi@g_hi + a_hi@g_lo + a_lo@g_hi`` of three matmuls of bf16 values
-    (``_mxu_contract`` of the JAX package).
+    (``_mxu_contract`` of the JAX package), whose products are exact in
+    float32, so it is the tensor-core kernel's arithmetic up to the order
+    of the float32 sums; "highest" is one float32 matmul of the step's 32
+    rows.  The kernel's six passes (:func:`six_pass_product`) drop only
+    ~2^-24 per product, so the cheaper matmul can stand for them: on the
+    worst row of the full-window chunk (35 wavelengths, 1280 x 768) the
+    kernel lies 4.1e-08 of max|U| from the six-pass product per step and
+    2.5e-07 from this matmul per step, and all three 3.7e-07 from float64
+    (NVIDIA H100 80GB HBM3, 700.00 W, ``chip_smoke.py``); the kernels are
+    held to 1e-6 of max|U| from this function.
 
-    Each product of two bf16 values is exact in float32, so "high" is the
-    tensor-core kernel's arithmetic up to the order of the float32 sums,
-    and it takes the kernel's order of steps: the three passes over each
-    :data:`K_STEP` contraction rows, then a running sum over the steps.
-    On the production window, one float32 matmul over all 1280 rows lies
-    up to ~7e-6 of max|U| from the exact sum of its products (as does the
-    FMA body, which sums in the same order), more than the 2e-6 the
-    kernel is held to, while the stepped sums lie within ~5e-7 of it
-    (measured on an NVIDIA H100)."""
-    if precision == "highest":
+    The steps are there because one float32 matmul over all 1280 rows of
+    the production window lies up to ~7e-6 of max|U| from the exact sum
+    of its products (same card; so did the float32 FMA kernel that summed
+    in that order: 6.6e-06 from float64), more than the kernels are held
+    to, while the stepped sums lie within ~5e-7 of it.  The float32 CPU
+    chunk runs this too, so a CPU night and the card's night at "highest"
+    sum alike.  Operands of another type (float64: CPU only, no kernel
+    takes it) contract at "highest" in one matmul, as the JAX package's
+    float64 night does: there the order of the sums is far below anything
+    compared.
+    """
+    high = precision == "high"
+    if not high and g.dtype != torch.float32:
         return torch.matmul(a2, g)
-    a_hi, a_lo = split_bf16(a2)
-    g_hi, g_lo = split_bf16(g)
+    if high:
+        a_hi, a_lo = split_bf16(a2)
+        g_hi, g_lo = split_bf16(g)
     u = None
     for k in range(0, g.shape[-2], K_STEP):
-        ah, al = (p[..., k:k + K_STEP].to(g.dtype) for p in (a_hi, a_lo))
-        gh, gl = (p[..., k:k + K_STEP, :].to(g.dtype) for p in (g_hi, g_lo))
-        part = (torch.matmul(ah, gh) + torch.matmul(ah, gl)
-                + torch.matmul(al, gh))
+        if high:
+            ah, al = (p[..., k:k + K_STEP].to(g.dtype) for p in (a_hi, a_lo))
+            gh, gl = (p[..., k:k + K_STEP, :].to(g.dtype)
+                      for p in (g_hi, g_lo))
+            part = (torch.matmul(ah, gh) + torch.matmul(ah, gl)
+                    + torch.matmul(al, gh))
+        else:
+            part = torch.matmul(a2[..., k:k + K_STEP],
+                                g[..., k:k + K_STEP, :])
         u = part if u is None else u + part
     return u
+
+
+def damped_otf(dphi, dl, alpha, w, exp2=False):
+    """G of the module docstring, (B, nl, N, ncols): the damping summed
+    over the directions in their order, times dl, with the roundings the
+    kernels repeat (a product, then a sum; no fused multiply-add)."""
+    if exp2:
+        al = (alpha * _LOG2E)[None, :, None, None]
+        lw = torch.log2(w)
+    g = None
+    for d in range(dphi.shape[1]):
+        x = dphi[:, d, None]                              # (B, 1, N, ncols)
+        if exp2:
+            c = torch.exp2(al * x + lw[:, :, d, None, None])
+        else:
+            c = (torch.exp(alpha[None, :, None, None] * x)
+                 * w[:, :, d, None, None])
+        g = c if g is None else g + c                     # (B, nl, N, ncols)
+    return g * dl
 
 
 def fused_exp_zoom_reference(dphi, dl, a2, alpha, w, exp2=False,
@@ -130,19 +196,7 @@ def fused_exp_zoom_reference(dphi, dl, a2, alpha, w, exp2=False,
     at ``precision`` (:func:`contract`).
     """
     check_precision(precision)
-    if exp2:
-        al = (alpha * _LOG2E)[None, :, None, None]
-        lw = torch.log2(w)
-    g = None
-    for d in range(dphi.shape[1]):
-        x = dphi[:, d, None]                              # (B, 1, N, ncols)
-        if exp2:
-            c = torch.exp2(al * x + lw[:, :, d, None, None])
-        else:
-            c = (torch.exp(alpha[None, :, None, None] * x)
-                 * w[:, :, d, None, None])
-        g = c if g is None else g + c                     # (B, nl, N, ncols)
-    g = g * dl
+    g = damped_otf(dphi, dl, alpha, w, exp2)
     n = dphi.shape[2]
     _check_splits(n, row_splits)
     h = n // row_splits
@@ -159,6 +213,16 @@ def _check_splits(n, row_splits):
                             or (n // row_splits) % 32):
         raise ValueError(f"row_splits={row_splits} must divide the {n} "
                          "contraction rows into slices of a multiple of 32")
+
+
+def _check_rows(name, n, precision):
+    """The kernels stage A2 by 16-byte copies: rows of 8 bf16 values at
+    "high", of 4 float32 values at "highest"."""
+    per = 8 if precision == "high" else 4
+    if n % per:
+        raise ValueError(f"{name}: the kernel stages A2 in rows of {per} "
+                         f"values at {precision!r}; {n} contraction rows "
+                         f"are not a multiple of {per}")
 
 
 def _launch(name, dphi, dl, a2, alpha, w, exp2, row_splits, precision,
@@ -178,10 +242,7 @@ def _launch(name, dphi, dl, a2, alpha, w, exp2, row_splits, precision,
                           unit_stride_only=True)
     if nl > 65535 or B > 65535:
         raise ValueError(f"{name}: grid too large (nl={nl}, B={B})")
-    if precision == "high" and n % 8:
-        raise ValueError(f"{name}: the tensor-core body stages A2 in rows "
-                         f"of 8 bf16; {n} contraction rows are not a "
-                         "multiple of 8")
+    _check_rows(name, n, precision)
     if exp2:
         alpha = alpha * _LOG2E
         w = torch.log2(w)
@@ -214,12 +275,12 @@ def _launch(name, dphi, dl, a2, alpha, w, exp2, row_splits, precision,
 def fused_exp_zoom(dphi, dl, a2, alpha, w, exp2=False, row_splits=1,
                    precision="highest"):
     """K1 (``row_splits=1``) or K3 on the tensors' device: for CUDA
-    tensors (float32 only; anything else raises) the tensor-core kernel at
-    ``precision="high"`` or the FMA kernel at "highest", for CPU tensors
-    :func:`fused_exp_zoom_reference` at ``precision``.  Shapes as in the
-    reference; every tensor contiguous except ``dphi``, which may be any
-    view with unit column stride (the blue sub-window of a structure
-    function).  The default "highest" is the JAX function's."""
+    tensors (float32 only; anything else raises) the tensor-core kernel
+    with the three passes of ``precision="high"`` or the six of "highest",
+    for CPU tensors :func:`fused_exp_zoom_reference` at ``precision``.
+    Shapes as in the reference; every tensor contiguous except ``dphi``,
+    which may be any view with unit column stride (the blue sub-window of
+    a structure function).  The default "highest" is the JAX function's."""
     global LAUNCHES, ROWSPLIT_LAUNCHES, TC_LAUNCHES, TC_ROWSPLIT_LAUNCHES
     if dphi.device.type == "cpu":
         return fused_exp_zoom_reference(dphi, dl, a2, alpha, w, exp2,
@@ -272,7 +333,7 @@ def disc_column_groups(block_mask, tile_j: int = 128,
 def disc_live_rows(block_mask, n: int, ncols: int, tile_j: int = 128,
                    row_block: int = 128):
     """K5's table: (ncols / 64, 2) int32 ``[lo, hi)`` contraction rows of
-    each 64-column tile of the kernel (both bodies tile the columns by
+    each 64-column tile of the kernel (it tiles the columns by
     :data:`N_TILE`), from :func:`disc_column_groups` of the (ncols /
     tile_j, n / row_block) mask."""
     mask = np.asarray(block_mask)
@@ -390,8 +451,8 @@ def fused_exp_zoom_anchor(dphi, dl, a2, centre, astar, coef, group,
     """K6 on the tensors' device: for CUDA tensors (float32 only; groups of
     at most :data:`ANCHOR_MAX_GROUP` wavelengths, degree at most
     :data:`ANCHOR_MAX_DEGREE`; anything else raises) the tensor-core kernel
-    (``csrc/zoom_anchor_tc.cu``) at ``precision="high"`` or the FMA kernel
-    (``csrc/zoom_anchor.cu``) at "highest", for CPU tensors
+    (``csrc/zoom_anchor_tc.cu``) with the three passes of
+    ``precision="high"`` or the six of "highest", for CPU tensors
     :func:`fused_exp_zoom_anchor_reference` at ``precision``.  Counterpart
     of the JAX package's ``fused_exp_zoom_anchor``, with every group of
     the cube in one launch.  ``dphi`` may be any view with unit column
@@ -418,10 +479,7 @@ def fused_exp_zoom_anchor(dphi, dl, a2, centre, astar, coef, group,
                           unit_stride_only=True)
     if B > 65535:
         raise ValueError(f"fused_exp_zoom_anchor: grid too large (B={B})")
-    if precision == "high" and n % 8:
-        raise ValueError(f"fused_exp_zoom_anchor: the tensor-core body "
-                         f"stages A2 in rows of 8 bf16; {n} contraction "
-                         "rows are not a multiple of 8")
+    _check_rows("fused_exp_zoom_anchor", n, precision)
     u = torch.empty((B, nl, m2, ncols), dtype=torch.float32,
                     device=dphi.device)
     sb, sd, sr, _ = dphi.stride()

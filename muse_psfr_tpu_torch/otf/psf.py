@@ -525,11 +525,17 @@ def _anchor_operands(alpha, k: int, degree: int, norm: float):
 
 def _zoom_precision(cfg: GalacsiConfig, device) -> str:
     """The contraction precision of the fused zoom kernels for a chunk on
-    ``device``: ``cfg.zoom_precision`` on the card, where the kernels run,
-    and "highest" on the CPU.  The JAX package reads ``zoom_precision``
-    only in its Pallas path, which runs only on the TPU; off the TPU its
-    chunk contracts in full precision (XLA), and so does the port's CPU
-    chunk, which the CPU tests hold to the JAX package's."""
+    ``device``: ``cfg.zoom_precision`` on the card, where the kernels run
+    (three bf16 passes at "high", six at "highest", both on the tensor
+    cores), and "highest" on the CPU.  The JAX package reads
+    ``zoom_precision`` only in its Pallas path, which runs only on the
+    TPU; off the TPU its chunk contracts in full precision (XLA), and so
+    does the port's CPU chunk, which the CPU tests hold to the JAX
+    package's.  The CPU chunk runs the kernels' plain version
+    (``ops/zoom_dft.py:contract``): in float32 a matmul per 32 contraction
+    rows, then a running sum over the steps, the order the card's night at
+    "highest" sums in (XLA sums in one dot, within the tests' tolerances
+    of it); in float64 one matmul, as XLA does."""
     return cfg.zoom_precision if torch.device(device).type == "cuda" \
         else "highest"
 

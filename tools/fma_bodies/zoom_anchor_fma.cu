@@ -1,4 +1,12 @@
-// K6: anchored-Taylor damping x zoom-DFT stage 1, for Hopper.
+// The float32 FMA body of K6: anchored-Taylor damping x zoom-DFT stage 1,
+// for Hopper.
+//
+// A yardstick, not part of the package: this body ran zoom_precision
+// "highest" until the six-pass tensor-core body of
+// muse_psfr_tpu_torch/csrc/zoom_anchor_tc.cu took its place.
+// tools/ab_zoom_highest.py and chip_smoke.py build it into a library of
+// their own and time it in turns with that body; nothing under
+// muse_psfr_tpu_torch/ builds or launches it.
 //
 // Replaces muse_psfr_tpu/ops/zoom_dft.py:fused_exp_zoom_anchor (body
 // _kernel_anchor).  Per telemetry row b and wavelength group g (group
@@ -35,8 +43,10 @@
 // sums and combinations ~70 GFLOP and 1.95 G exponentials (K1: 13.6 G),
 // against 2.3 GB of traffic (0.7 ms at 3.35 TB/s).  What limits this
 // version is occupancy (8 warps per SM, set by the register-held
-// accumulators: ~218 registers a thread) and plain fp32 FMAs from shared
-// memory; tensor cores and a deeper pipeline are later work.
+// accumulators: ~218 registers a thread), plain fp32 FMAs from shared
+// memory and A2 tiles copied by 4-byte cp.async: 4.70 ms at 4 rows x 35
+// wavelengths x 9 directions, where the six-pass tensor-core body takes
+// 2.93 ms (NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py).
 //
 // Grid: (32-column tiles x 160-row output blocks, groups, rows).  The last
 // group may hold fewer wavelengths; a block skips the missing ones.
