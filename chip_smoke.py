@@ -112,12 +112,43 @@ Phases (any failure raises, so the exit code is non-zero):
     relative), 1024 rows done in the sidecar, a ``resume=True`` call that
     launches nothing and returns the same arrays, the ``save_sweep`` round
     trip; wall time with and without the checkpoint, guard trips;
-17. one JSON line of per-kernel results, each with its launches on the
+17. K2 at ``conv_precision="high"`` (the tensor-core body,
+    ``csrc/conv_dft_tc.cu``: every contraction of the chain as the 3-pass
+    bf16 split) at 50 rows x 35 planes, L 64, against its plain version
+    (<= 3e-5 of max|out|: two float32 orders of this arithmetic, which
+    splits every intermediate anew, lie as far apart as each lies from
+    float64, ~1e-5) and against the float64 chain (no further than 1.5x
+    the plain version, rms and max), beside the float32 body's distance;
+    bit-identical on a rerun; timed in turns with the float32 body (old,
+    new, new, old) and beside the cuFFT route;
+18. the 1- and the 9-direction FFT-free nights at ``conv_precision=
+    "high"``: only the tensor-core K2 launched, never the float32 one;
+    mean PSF within 3e-5 (the tier's own distance from float64 at the
+    kernel is ~1e-5 of max|out|, and the mean over rows does not average
+    the shared intrinsic spectra's error away) and per-row FWHM/beta
+    within 1e-3 of the same nights at "highest"; the golden row (rms <=
+    1e-5) and the CLI block,
+    exact; three warmed nights of each tier in turns;
+19. the 1-direction night at ``matmul_precision="high"``, at the default
+    config (``use_fft=True``) and FFT-free: the golden row (rms <= 1e-5),
+    the distance from the night at "highest" (printed), three warmed
+    nights of each tier in turns; "default" (one bf16 pass) once, its
+    golden rms printed as a finding and held to nothing;
+20. ``compat.py`` on the card in float64: ``simul_psd_wfm`` ->
+    ``psf_muse`` -> ``convolve_final_psf`` -> ``fit_psf_cube`` at (1.0,
+    0.7, 25), 500/700/900 nm gives the CLI block to two decimals and
+    equals the same chain on ``device="cpu"`` to <= 1e-10 relative;
+    ``psd_to_psf`` and ``dsp4muse`` (9 directions) likewise; no kernel is
+    launched; wall time of each on the card (first call and again) and on
+    the CPU;
+21. one JSON line of per-kernel results, each with its launches on the
     path that runs it (the FFT-free default nights for the three-pass
     launches and K2, the "highest" nights for the six-pass launches, the
-    switch nights for K5 and K6, each at its night's precision; every one
-    must be > 0; ``user_layer_launches`` on K1 and K3 "high" and on K2
-    gives their counts on the paths of phases 13-16, K2's all 0) and its
+    switch nights for K5 and K6, each at its night's precision, the
+    ``conv_precision="high"`` night for K2's tensor-core body; every one
+    must be > 0; ``user_layer_launches`` on K1 and K3 "high" and on both
+    K2 bodies gives their counts on the paths of phases 13-16, K2's all
+    0) and its
     bound (the larger of its bytes
     over 3.35 TB/s and its operations, each over its unit's peak: fp32
     FLOPs over 67 TFLOP/s, bf16 tensor-core FLOPs (three or six passes)
@@ -127,7 +158,8 @@ Phases (any failure raises, so the exit code is non-zero):
     ``{"ok": true, "device": {...}}``.
 
 The default-config nights must launch neither K5 nor K6, and no night
-may launch a kernel of the other precision.
+may launch a kernel of the other precision, nor a K2 body of the other
+``conv_precision``.
 
 Imports nothing of JAX.
 """
@@ -498,6 +530,20 @@ def conv_inputs(torch, cfg, dev, rows, B=50):
     return (planes, gtt_r, gtt_i, gi_r, gi_i, nk), (k_tt, k_i), s64
 
 
+def conv_chain_flop(B, nl, n, L):
+    """FLOPs of K2's contractions (two 'same' convolutions per plane):
+    per convolution the forward (2L x n)(n x n), four (L x n)(n x L), four
+    (n x L)(L x L) and two (n x L)(L x n) products."""
+    per_conv = 2.0 * (2 * L * n * n + 4 * L * L * n + 4 * n * L * L
+                      + 2 * n * n * L)
+    return 2 * B * nl * per_conv
+
+
+def conv_chain_bytes(B, nl, n, L):
+    """Planes in and out once, the spectra and the DFT pair once."""
+    return 4.0 * (2 * B * nl * n * n + 2 * (B + nl) * L * L + 2 * L * L)
+
+
 def check_conv_kernel(torch, cfg, dev, rows):
     """K2 vs its plain version at one production chunk (50 rows x 35
     planes), with the real tip-tilt and intrinsic Moffat spectra; both
@@ -537,14 +583,9 @@ def check_conv_kernel(torch, cfg, dev, rows):
     print(f"K2 time {ms:.4f} ms (again after the others: {ms2:.4f} ms), "
           f"plain PyTorch {plain_ms:.4f} ms, the cuFFT route of use_fft=True "
           f"(_fft_convolve_same twice) {fft_ms:.4f} ms")
-    # FMAs per 'same' convolution: forward (2L x n)(n x n), four
-    # (L x n)(n x L), four (n x L)(L x L), two (n x L)(L x n); and ~8
-    # operations per spectrum element
-    per_conv = 2.0 * (2 * L * n * n + 4 * L * L * n + 4 * n * L * L
-                      + 2 * n * n * L)
-    flop = 2 * B * nl * per_conv + 2.0 * B * nl * 8 * L * L
-    bound = roofline("K2", 4.0 * (2 * B * nl * n * n + 2 * (B + nl) * L * L
-                                  + 2 * L * L), fp32=flop)
+    # the contractions and ~8 operations per spectrum element
+    flop = conv_chain_flop(B, nl, n, L) + 2.0 * B * nl * 8 * L * L
+    bound = roofline("K2", conv_chain_bytes(B, nl, n, L), fp32=flop)
     print(f"K2 at {bound['bound_ms'] / ms:.1%} of its bound, "
           f"{flop / ms / 1e9:.2f} TFLOP/s")
     return {"name": "fused_conv_chain", "route": "cuda",
@@ -737,6 +778,17 @@ def only_its_precision(counts, precision, label):
                            f"the other precision: {counts}")
 
 
+def only_its_conv_body(counts, precision, label):
+    """An FFT-free night launches K2's float32 body (``conv_dft``) at
+    conv_precision "highest" and its tensor-core body (``conv_dft_tc``)
+    at "high", and never the other one."""
+    ran, idle = (("conv_dft_tc", "conv_dft") if precision == "high"
+                 else ("conv_dft", "conv_dft_tc"))
+    if counts[ran] < 1 or counts[idle] != 0:
+        raise RuntimeError(f"{label} at conv_precision={precision} must "
+                           f"launch {ran} only: {counts}")
+
+
 def check_plan(rows, night, golden):
     from muse_psfr_tpu_torch.parallel.batch import plan_batch
     kw = {k: night[k] for k in ("npsflin", "cfg", "chunk")}
@@ -806,6 +858,8 @@ def cli_block(cfg):
         raise RuntimeError(f"K3 never ran on the CLI block: {counts}")
     no_disc_or_anchor(counts, "the CLI block")
     only_its_precision(counts, cfg.zoom_precision, "the CLI block")
+    if not cfg.use_fft:
+        only_its_conv_body(counts, cfg.conv_precision, "the CLI block")
     return counts
 
 
@@ -829,6 +883,7 @@ def main_path(torch, cfg, rows, card):
         raise RuntimeError(f"a kernel of the night never ran: {counts}")
     no_disc_or_anchor(counts, "the 1-direction night")
     only_its_precision(counts, cfg.zoom_precision, "the 1-direction night")
+    only_its_conv_body(counts, cfg.conv_precision, "the 1-direction night")
     unpacked = check_fits(fit, len(rows[0]), psf_mean, fit_mean)
     print(f"all {unpacked['ok'].size} plane fits finite and converged; "
           f"fwhm range {unpacked['fwhm'][..., 0].min() * cfg.pixscale:.3f}"
@@ -886,6 +941,7 @@ def ndir9_path(torch, cfg, rows, card, guard_log):
         raise RuntimeError(f"a kernel of the night never ran: {counts}")
     no_disc_or_anchor(counts, "the 9-direction night")
     only_its_precision(counts, cfg.zoom_precision, "the 9-direction night")
+    only_its_conv_body(counts, cfg.conv_precision, "the 9-direction night")
     got = check_fits(fit, len(rows[0]), psf_mean, fit_mean)
 
     full = process_batch(*rows, **night, _force_full=True)
@@ -906,17 +962,21 @@ def ndir9_path(torch, cfg, rows, card, guard_log):
     return counts, night, (psf_mean, got)
 
 
-def compare_nights(label, got_mean, got_fit, want_mean, want_fit):
-    """Mean PSF relative max-abs <= 1e-5 and per-row FWHM/beta <= 1e-3."""
+def compare_nights(label, got_mean, got_fit, want_mean, want_fit,
+                   psf_limit=1e-5):
+    """Mean PSF relative max-abs <= ``psf_limit`` and per-row FWHM/beta
+    <= 1e-3."""
     rel = float(np.abs(got_mean - want_mean).max() / np.abs(want_mean).max())
     rfw = np.abs(got_fit["fwhm"] - want_fit["fwhm"]) / np.abs(want_fit["fwhm"])
     rn = np.abs(got_fit["n"] - want_fit["n"]) / np.abs(want_fit["n"])
-    print(f"{label}: mean PSF relative max-abs {rel:.3e} (limit 1e-5); "
+    print(f"{label}: mean PSF relative max-abs {rel:.3e} (limit "
+          f"{psf_limit:.0e}); "
           f"per-row FWHM {float(rfw.max()):.3e}, beta {float(rn.max()):.3e} "
           f"relative (limit 1e-3; median {float(np.median(rfw)):.3e}, "
           f"{float(np.median(rn)):.3e})")
-    if not (rel <= 1e-5 and rfw.max() <= 1e-3 and rn.max() <= 1e-3):
+    if not (rel <= psf_limit and rfw.max() <= 1e-3 and rn.max() <= 1e-3):
         raise RuntimeError(f"{label}: the nights depart")
+    return rel
 
 
 def ndir9_highest(cfg, rows, card, high):
@@ -1090,7 +1150,8 @@ def default_config_night(cfg, rows, card, guard_log, fft_free, exact,
     print(f"{label} at the default config (use_fft=True, zoom_precision="
           f"{cfg.zoom_precision}): launches {counts}; window-guard trips: "
           f"{len(guard_log.trips)}")
-    if counts["zoom_dft_tc"] < 1 or counts["conv_dft"] != 0:
+    if (counts["zoom_dft_tc"] < 1 or counts["conv_dft"] != 0
+            or counts["conv_dft_tc"] != 0):
         raise RuntimeError(f"{label}: K1 must run at high and "
                            f"K2 not at all: {counts}")
     no_disc_or_anchor(counts, label)
@@ -1100,9 +1161,101 @@ def default_config_night(cfg, rows, card, guard_log, fft_free, exact,
         raise RuntimeError(f"the FFT route left float32: {psf_mean.dtype}")
     compare_nights(f"{label}, default config against FFT-free", psf_mean,
                    got, *exact)
-    walls = {"use_fft=True": [], "use_fft=False": []}
+    nights_in_turns(rows, {"use_fft=True": night, "use_fft=False": fft_free},
+                    warm, card, label)
+    return counts
+
+
+def check_conv_high_kernel(torch, cfg, dev, rows):
+    """K2 at conv_precision "high" (the tensor-core body) at one
+    production chunk, with the real Moffat spectra: against its plain
+    version and the float64 chain, beside the float32 body; times in turns
+    with the float32 body, beside the cuFFT route."""
+    from muse_psfr_tpu_torch.ops import _build, conv_dft
+    from muse_psfr_tpu_torch.otf.convolve import _fft_convolve_same
+    args, (k_tt, k_i), s64 = conv_inputs(torch, cfg, dev, rows)
+    planes, nk = args[0], args[-1]
+    B, nl, n, _ = planes.shape
+    L = args[1].shape[-1]
+    before = _build.launch_counts()
+    bodies = {
+        "K2 high": conv_dft.fused_conv_chain(*args, precision="high"),
+        "plain high": conv_dft.fused_conv_chain_reference(
+            *args, precision="high"),
+        "K2 highest": conv_dft.fused_conv_chain(*args),
+        "plain highest": conv_dft.fused_conv_chain_reference(*args)}
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    if after != dict(before, conv_dft=before["conv_dft"] + 1,
+                     conv_dft_tc=before["conv_dft_tc"] + 1):
+        raise RuntimeError(f"K2's bodies count on the wrong counters: "
+                           f"{before} -> {after}")
+    abs_err, rel = rel_err(torch, bodies["K2 high"], bodies["plain high"])
+    print(f"K2 high fused_conv_chain(precision=\"high\"): planes "
+          f"{tuple(planes.shape)}, L={L}; max abs err {abs_err:.3e}, "
+          f"relative {rel:.3e} from the plain 3-pass version (limit 3e-5)")
+    w64 = conv_dft.fused_conv_chain_reference(planes.double(), *s64, nk)
+    scale = float(w64.abs().max())
+    emax = {k: rel_err(torch, v, w64)[1] for k, v in bodies.items()}
+    erms = {k: float((v.double() - w64).pow(2).mean().sqrt()) / scale
+            for k, v in bodies.items()}
+    print("K2 high against the float64 chain, relative max-abs: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in emax.items()))
+    print("K2 high against the float64 chain, rms over max|out|: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in erms.items()))
+    again = conv_dft.fused_conv_chain(*args, precision="high")
+    same = bool(torch.equal(again, bodies["K2 high"]))
+    print(f"K2 high rerun bit-identical: {same}")
+    if not rel <= 3e-5:
+        raise RuntimeError(f"K2 high disagrees with its plain version: {rel}")
+    if not (emax["K2 high"] <= 1.5 * emax["plain high"]
+            and erms["K2 high"] <= 1.5 * erms["plain high"] and same):
+        raise RuntimeError(f"K2 high lies further from float64 than its "
+                           f"plain version: {emax}, {erms}")
+    del w64, s64, again
+
+    def fft_route():
+        y = _fft_convolve_same(planes, k_tt[:, None], n, nk)
+        return _fft_convolve_same(y, k_i[None], n, nk)
+
+    turns = in_turns(
+        torch, lambda: conv_dft.fused_conv_chain(*args),
+        lambda: conv_dft.fused_conv_chain(*args, precision="high"), 50)
+    fft_ms = cuda_ms(torch, fft_route, 50)
+    plain_ms = cuda_ms(torch, lambda: conv_dft.fused_conv_chain_reference(
+        *args, precision="high"), 10)
+    ms = min(turns["new"])
+    print(f"K2 times [ms] in turns: float32 body {turns['old'][0]:.4f}, "
+          f"tensor-core body {turns['new'][0]:.4f}, tensor-core body "
+          f"{turns['new'][1]:.4f}, float32 body {turns['old'][1]:.4f}; the "
+          f"cuFFT route {fft_ms:.4f}; plain 3-pass PyTorch {plain_ms:.4f}")
+    # the contractions in three bf16 passes on the tensor cores; the
+    # spectrum product, the sums of two products and the splits (~8 + ~6
+    # operations per element of every stage) in float32
+    stage_elems = 2 * L * n + 2 * L * L + 2 * n * L + n * n
+    fp32 = 2.0 * B * nl * (8 * L * L + 6 * stage_elems)
+    tc = 3 * conv_chain_flop(B, nl, n, L)
+    bound = roofline("K2 high", conv_chain_bytes(B, nl, n, L), fp32=fp32,
+                     tc=tc)
+    print(f"K2 high at {bound['bound_ms'] / ms:.1%} of its bound, "
+          f"{tc / ms / 1e9:.2f} TFLOP/s bf16")
+    return {"name": "fused_conv_chain@high (K2 _kernel/_conv_pack, 3-pass "
+            "bf16 tensor cores)", "route": "cuda",
+            "source": "muse_psfr_tpu_torch/csrc/conv_dft_tc.cu",
+            "replaces": "muse_psfr_tpu/ops/conv_dft.py:139",
+            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+            "float32_body_ms": min(turns["old"]), "fft_route_ms": fft_ms,
+            "f64_rel_err": emax["K2 high"], "f64_rms": erms["K2 high"],
+            **bound}
+
+
+def nights_in_turns(rows, nights, warm, card, label):
+    """``warm`` warmed nights of each of ``nights`` {name: process_batch
+    arguments}, taken in turns; the medians [s]."""
+    from muse_psfr_tpu_torch.parallel.batch import process_batch
+    walls = {k: [] for k in nights}
     for _ in range(warm):
-        for key, kw in (("use_fft=True", night), ("use_fft=False", fft_free)):
+        for key, kw in nights.items():
             t0 = time.perf_counter()
             process_batch(*rows, **kw)
             walls[key].append(time.perf_counter() - t0)
@@ -1111,6 +1264,158 @@ def default_config_night(cfg, rows, card, guard_log, fft_free, exact,
         f"{float(np.median(v)):.4f} s, "
         f"{len(rows[0]) / float(np.median(v)):.2f} rows/s"
         for k, v in walls.items()) + f" ({card})")
+    return {k: float(np.median(v)) for k, v in walls.items()}
+
+
+def conv_high_nights(cfg, rows, card, night, night9, exact1, exact9):
+    """The FFT-free nights at conv_precision="high": only K2's tensor-core
+    body runs; against the same nights at "highest"; golden row; CLI
+    block; warmed nights of both tiers in turns."""
+    from muse_psfr_tpu_torch.ops import _build
+    from muse_psfr_tpu_torch.parallel.batch import process_batch
+    high = cfg.with_(conv_precision="high")
+    out = {}
+    for label, base, exact in (("1-direction night", night, exact1),
+                               ("9-direction night", night9, exact9)):
+        kw = dict(base, cfg=high)
+        _build.reset_launch_counts()
+        fit, psf_mean, fit_mean = process_batch(*rows, **kw)
+        counts = _build.launch_counts()
+        print(f"{label} at conv_precision=high: launches {counts}")
+        only_its_conv_body(counts, "high", label)
+        only_its_precision(counts, cfg.zoom_precision, label)
+        no_disc_or_anchor(counts, label)
+        got = check_fits(fit, len(rows[0]), psf_mean, fit_mean)
+        # the tier itself lies ~1e-5 of max|out| from float64 at the
+        # kernel (phase 17), and the intrinsic spectra's split errors are
+        # the same in every row, so the mean does not average them away:
+        # the night is held to 3e-5, not to the 1e-5 of the other nights
+        compare_nights(f"{label}, conv_precision high against highest",
+                       psf_mean, got, *exact, psf_limit=3e-5)
+        nights_in_turns(rows, {"conv_precision=highest": base,
+                               "conv_precision=high": kw}, 3, card, label)
+        out[label] = counts
+    golden_rms(high, rows, "conv_precision=high")
+    out["cli"] = cli_block(high)
+    return out
+
+
+def matmul_tier_nights(cfg, user_cfg, rows, card, night):
+    """The 1-direction night at matmul_precision="high", at the default
+    config and FFT-free: golden row, distance from the night at "highest",
+    warmed nights in turns; "default" once, as a finding."""
+    from muse_psfr_tpu_torch.ops import _build
+    from muse_psfr_tpu_torch.parallel.batch import process_batch
+    for label, base in (("default config (use_fft=True)", user_cfg),
+                        ("FFT-free", cfg)):
+        top = dict(night, cfg=base)
+        kw = dict(night, cfg=base.with_(matmul_precision="high"))
+        want = process_batch(*rows, **top)
+        _build.reset_launch_counts()
+        fit, psf_mean, fit_mean = process_batch(*rows, **kw)
+        counts = _build.launch_counts()
+        got = check_fits(fit, len(rows[0]), psf_mean, fit_mean)
+        from muse_psfr_tpu_torch.fit.moffat_fit import unpack_fit
+        ref = unpack_fit(want[0])
+        rel = float(np.abs(psf_mean - want[1]).max() / np.abs(want[1]).max())
+        rfw = np.abs(got["fwhm"] - ref["fwhm"]) / np.abs(ref["fwhm"])
+        rn = np.abs(got["n"] - ref["n"]) / np.abs(ref["n"])
+        print(f"1-direction night, {label}, matmul_precision=high: launches "
+              f"{counts}; from the night at highest: mean PSF relative "
+              f"max-abs {rel:.3e}, per-row FWHM {float(rfw.max()):.3e}, beta "
+              f"{float(rn.max()):.3e} relative (printed, no limit)")
+        if counts["zoom_dft_tc"] < 1:
+            raise RuntimeError(f"K1 never ran: {counts}")
+        golden_rms(kw["cfg"], rows, f"{label}, matmul_precision=high")
+        nights_in_turns(rows, {"matmul_precision=highest": top,
+                               "matmul_precision=high": kw}, 3, card,
+                        f"1-direction night, {label}")
+    from muse_psfr_tpu_torch.parallel.batch import reconstruct_batch
+    one = user_cfg.with_(matmul_precision="default")
+    cube = reconstruct_batch(*(a[:1] for a in rows), lbda=LBDA, cfg=one,
+                             chunk=1, device="cuda")[0]
+    rms = float(np.sqrt(np.mean((cube.astype(np.float64)
+                                 - np.load(GOLDEN)) ** 2)))
+    print(f"golden row (1.0, 0.7, 25), default config, matmul_precision="
+          f"default (one bf16 pass): rms {rms:.3e} vs the float64 oracle (a "
+          f"finding: this tier is documented as outside the 1e-5 budget and "
+          f"is held to nothing); finite: {bool(np.isfinite(cube).all())}")
+    if not np.isfinite(cube).all():
+        raise RuntimeError("matmul_precision=default gave non-finite values")
+
+
+def compat_path(card):
+    """``compat.py`` (the reference's names) in float64 on the card and on
+    the CPU: the documented chain to the CLI block, ``psd_to_psf``,
+    ``dsp4muse``; card against CPU <= 1e-10 relative; no kernel launched."""
+    import muse_psfr_tpu_torch.compat as mp
+    from muse_psfr_tpu_torch.ops import _build
+    lb3 = np.array([500.0, 700.0, 900.0])
+    pup = np.asarray(mp.pupil_mask(320, 640, oc=0.14), float)
+    poslgs = np.array([[1, 1], [-1, -1], [-1, 1], [1, -1]], float).T * 63
+    r0ref = float(mp.seeing2r01(1.0, 0.5, 0))
+
+    def chain(device):
+        t, out = {}, {}
+        t0 = time.perf_counter()
+        out["psd"] = mp.simul_psd_wfm([0.7, 0.3], (100, 10000), 1.0, 25.0,
+                                      npsflin=1, dim=1280, verbose=False,
+                                      device=device)
+        t["simul_psd_wfm"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["cube"] = mp.psf_muse(out["psd"], lb3, device=device)
+        t["psf_muse"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["final"] = mp.convolve_final_psf(lb3, 1.0, 0.7, 25.0,
+                                             out["cube"], device=device)
+        t["convolve_final_psf"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tbl = mp.fit_psf_cube(lb3, out["final"], device=device)
+        t["fit_psf_cube"] = time.perf_counter() - t0
+        out["fwhm"] = np.asarray(tbl["fwhm"], float)
+        out["beta"] = np.asarray(tbl["n"], float)
+        t0 = time.perf_counter()
+        out["psd_to_psf"] = mp.psd_to_psf(out["psd"][0], pup, 8.0, 500e-9,
+                                          samp=2, device=device)
+        t["psd_to_psf"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["dsp4muse"] = mp.dsp4muse(
+            8.0, 40, 80, np.array([0.7, 0.3]), np.array([100.0, 10000.0]),
+            25.0, r0ref, 1, 1.0, np.full(2, 12.0),
+            np.array([0.628163, -0.326497]), "LSE", 24.0, 24.0, 1000.0, 2.5,
+            1.0, 0.5, poslgs, mp.direction_perf(3), device=device)
+        t["dsp4muse"] = time.perf_counter() - t0
+        return out, t
+
+    _build.reset_launch_counts()
+    card_out, t_first = chain("cuda")
+    _, t_again = chain("cuda")
+    counts = _build.launch_counts()
+    cpu_out, t_cpu = chain("cpu")
+    block = ("FWHM " + " ".join("%.2f" % v for v in card_out["fwhm"][:, 0]),
+             "BETA " + " ".join("%.2f" % v for v in card_out["beta"]))
+    print("compat chain on the card (float64): simul_psd_wfm -> psf_muse -> "
+          "convolve_final_psf -> fit_psf_cube\nLBDA 5000 7000 9000\n"
+          + "\n".join(block))
+    if block != CLI_BLOCK:
+        raise RuntimeError(f"compat block {block} != {CLI_BLOCK}")
+    if any(counts.values()):
+        raise RuntimeError(f"compat launched a kernel: {counts}")
+    rel = {}
+    for k, want in cpu_out.items():
+        got = card_out[k]
+        if got.dtype != np.float64 or got.shape != want.shape:
+            raise RuntimeError(f"compat {k}: {got.dtype} {got.shape}")
+        rel[k] = float(np.abs(got - want).max() / np.abs(want).max())
+    print("compat card against CPU, relative max-abs (limit 1e-10): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+          + f"; launches {counts}")
+    if not all(v <= 1e-10 for v in rel.values()):
+        raise RuntimeError(f"compat on the card departs from the CPU: {rel}")
+    print(f"compat wall [s] ({card}; CPU: the host's cores): "
+          + "; ".join(f"{k} card first {t_first[k]:.4f}, again "
+                      f"{t_again[k]:.4f}, CPU {t_cpu[k]:.4f}"
+                      for k in t_first))
     return counts
 
 
@@ -1534,6 +1839,7 @@ def main(argv):
                                       dev, rows, 1, lb3, row_splits=r_cli,
                                       label="K3 high CLI"))
     k2 = check_conv_kernel(torch, cfg, dev, rows)
+    k2h = check_conv_high_kernel(torch, cfg, dev, rows)
     k5, k6, t5, t6 = check_disc_anchor_kernels(torch, cfg, dev, rows, old)
 
     counts, cli_counts, night, exact1 = main_path(torch, cfg, rows, card)
@@ -1546,6 +1852,8 @@ def main(argv):
     counts_anchor_top = anchor_night(top, rows, card, guard_log,
                                      exact9_top, warm=0, golden=False)
     forced_redo(cfg, guard_log)
+    counts_conv_high = conv_high_nights(cfg, rows, card, night, night9,
+                                        exact1, exact9)
 
     # the user layer at the config a user gets (use_fft=True)
     user_cfg = GalacsiConfig()
@@ -1560,6 +1868,8 @@ def main(argv):
         user["sparta_file"] = sparta_file_path(user_cfg, rows, card, tmp)
         user["cli"] = real_cli(user_cfg, tmp)
         user["sweep"] = sweep_path(user_cfg, card, guard_log, tmp)
+    matmul_tier_nights(cfg, user_cfg, rows, card, night)
+    compat_path(card)
     k1["launches"] = counts_top["zoom_dft"]
     k1_9["launches"] = counts9_top["zoom_dft"]
     k3["launches"] = k3_cli["launches"] = cli_top["zoom_dft_rowsplit"]
@@ -1567,15 +1877,18 @@ def main(argv):
     k6["launches"] = counts_anchor_top["zoom_dft_anchor"]
     t6["launches"] = counts_anchor["zoom_dft_tc_anchor"]
     k2["launches"] = counts["conv_dft"]
+    k2h["launches"] = counts_conv_high["1-direction night"]["conv_dft_tc"]
+    k2h["launches_ndir9"] = \
+        counts_conv_high["9-direction night"]["conv_dft_tc"]
     t1["launches"] = counts["zoom_dft_tc"]
     t1_9["launches"] = counts9["zoom_dft_tc"]
     t3["launches"] = t3_cli["launches"] = cli_counts["zoom_dft_tc_rowsplit"]
     t5["launches"] = counts_disc["zoom_dft_tc_disc"]
     for rec, key in ((t1, "zoom_dft_tc"), (t3_cli, "zoom_dft_tc_rowsplit"),
-                     (k2, "conv_dft")):
+                     (k2, "conv_dft"), (k2h, "conv_dft_tc")):
         rec["user_layer_launches"] = {p: c[key] for p, c in user.items()}
     kernels = [k1, k1_9, k3, k3_cli, k2, k5, k6, t1, t1_9, t3, t3_cli, t5,
-               t6]
+               t6, k2h]
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         raise RuntimeError(f"never launched on their paths: {idle}")

@@ -6,7 +6,8 @@ chain, the tip-tilt and instrument convolutions and the batched Moffat
 fit, with the TPU kernels written by hand in CUDA for Hopper
 (``csrc/``; built on first use, never at import), and the user layer
 around them: SPARTA/FITS I/O, ``compute_psf_from_sparta``, the condition
-sweep and the ``muse-psfr-torch`` CLI.  Entry points take ``device=``
+sweep, the ``muse-psfr-torch`` CLI and the reference's own names
+(``compat.py``).  Entry points take ``device=``
 (default ``"cuda"``) and never fall back to the CPU.  This package
 imports no JAX.
 """
@@ -36,7 +37,7 @@ from .io.fits import (  # noqa: E402
 from .io.table import FitTable  # noqa: E402
 from .plotting import plot_psf, radial_profile  # noqa: E402
 from .psd.model import simulate_psd, seeing_to_r0  # noqa: E402
-from .otf.psf import pupil_otf  # noqa: E402
+from .otf.psf import psf_cube, pupil_otf  # noqa: E402
 from .otf.convolve import convolve_final  # noqa: E402
 from .parallel.batch import process_batch, reconstruct_batch  # noqa: E402
 
@@ -47,7 +48,7 @@ __all__ = [
     "MIN_L0", "MAX_L0",
     "HDUList", "PrimaryHDU", "ImageHDU", "BinTableHDU", "fits_open",
     "FitTable", "plot_psf", "radial_profile",
-    "simulate_psd", "seeing_to_r0", "pupil_otf", "convolve_final",
+    "simulate_psd", "seeing_to_r0", "psf_cube", "pupil_otf", "convolve_final",
     "reconstruct_batch", "process_batch", "condition_sweep", "save_sweep",
     "__version__",
 ]

@@ -22,9 +22,20 @@ three-part split (``Precision.HIGHEST`` on the TPU's matrix unit), a
 float32-grade product, in the same kernels.  The JAX package's "default"
 (one bf16 pass) is outside the accuracy budget (``docs/precision.md``) and
 raises.
-The other two ``*_precision`` fields are not ported yet
-(:data:`NOT_YET_PORTED`): every other contraction runs in full float32
-(TF32 off, see ``utils/device.py``).
+
+``matmul_precision`` and ``conv_precision`` choose the tier of the plain
+contractions around the kernels (the structure-function transforms and
+the second zoom stage of ``otf/psf.py``; the DFT products of the final
+convolutions, ``otf/convolve.py``) and of K2 (``ops/conv_dft.py``), as in
+the JAX package: "highest" (the default of both) is one float32 product
+(TF32 off, see ``utils/device.py``), "high" the 3-pass bf16 split with
+float32 accumulation, "default" one bf16 pass
+(``ops/zoom_dft.py:matmul_tier``).  ``matmul_precision`` takes all three
+(:data:`MATMUL_PRECISIONS`), as ``jnp.matmul`` does; ``conv_precision``
+also reaches K2, which has a "highest" and a "high" body and raises on
+anything else, as the JAX package's fused chain does.  Like
+``zoom_precision`` they are read only where the card runs: a CPU run
+contracts in float32.
 """
 
 from dataclasses import dataclass, replace
@@ -43,12 +54,15 @@ RENAMED = {"use_pallas": "use_fused_zoom", "use_pallas_conv": "use_fused_conv",
 TPU_LAYOUT_ONLY = ("pallas_lambda_chunk", "pallas_dir_block",
                    "pallas_conv_pack")
 
-#: JAX config fields with no counterpart yet: they choose TPU matmul pass
-#: counts
-NOT_YET_PORTED = ("matmul_precision", "conv_precision")
+#: JAX config fields with no counterpart yet: none is left
+NOT_YET_PORTED = ()
 
 #: accepted values of ``zoom_precision``
 ZOOM_PRECISIONS = ("high", "highest")
+
+#: accepted values of ``matmul_precision`` and ``conv_precision`` (what
+#: ``jax.lax.Precision`` takes); K2 itself runs only the last two
+MATMUL_PRECISIONS = ("default", "high", "highest")
 
 
 @dataclass(frozen=True)
@@ -93,6 +107,12 @@ class GalacsiConfig:
                                # (exact, FFT-free), which also routes the
                                # final convolutions through the fused
                                # conv-chain kernel
+    matmul_precision: str = "highest"  # tier of the plain contractions of
+                               # the OTF chain (structure function,
+                               # second zoom stage) on the card: "highest"
+                               # = one float32 product, "high" = 3-pass
+                               # bf16 split, "default" = one bf16 pass
+                               # (outside the accuracy budget)
     zoom_precision: str = "high"  # contraction of the fused zoom kernels
                                # (K1/K3/K5) on the card: "high" = 3-pass
                                # bf16 (hi*hi + hi*lo + lo*hi, float32
@@ -105,6 +125,13 @@ class GalacsiConfig:
     zoom_exp2: bool = True     # damping as exp2(alpha*log2e*D + log2 w)
                                # instead of exp(alpha*D)*w (same math up
                                # to argument rounding)
+    conv_precision: str = "highest"  # tier of the final-PSF convolution
+                               # DFT products on the FFT-free route: the
+                               # plain products (ops/zoom_dft.py:
+                               # matmul_tier) and K2's body, float32 FMAs
+                               # at "highest", the 3-pass bf16 split on
+                               # tensor cores at "high"; K2 raises on
+                               # "default"
     use_dphi_split: bool = True  # linearity split of the structure
                                # function: fitting-PSD transform
                                # precomputed per config, only the
@@ -162,6 +189,11 @@ class GalacsiConfig:
                 f"zoom_precision must be one of {ZOOM_PRECISIONS}, got "
                 f"{self.zoom_precision!r} (one bf16 pass is outside the "
                 "accuracy budget)")
+        for name in ("matmul_precision", "conv_precision"):
+            if getattr(self, name) not in MATMUL_PRECISIONS:
+                raise ValueError(
+                    f"{name} must be one of {MATMUL_PRECISIONS}, got "
+                    f"{getattr(self, name)!r}")
 
     # --- derived ------------------------------------------------------------
     @property

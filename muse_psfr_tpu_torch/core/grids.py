@@ -1,11 +1,47 @@
 """Frequency/pupil grid primitives (host numpy, float64).
 
-Counterpart of ``muse_psfr_tpu/core/grids.py`` for the grids the port's
-pipeline uses; they are host constants placed on the device by the
-callers.
+Counterpart of ``muse_psfr_tpu/core/grids.py``: the grids are host
+constants, placed on the device by the callers; :func:`fft_freq_polar`
+and :func:`pupil_mask` return tensors, as their JAX counterparts return
+device arrays.
 """
 
 import numpy as np
+import torch
+
+
+def fft_freq_polar(n: int, step: float, dtype=torch.float32, device="cpu"):
+    """FFT-ordered spatial-frequency grids ``(f, f_x, f_y)`` as tensors.
+
+    ``f_x``/``f_y`` reproduce the reference's polar decomposition through
+    ``arctan(fy/fx)`` with ``arg_f[0,0] = 0`` (psfrec.py:548-554), not
+    ``arctan2``: ``f_x = |fx|`` and ``f_y = sign(fx)*fy``, a consistent
+    per-frequency phasor conjugation that leaves the outputs unchanged and
+    is kept so that the intermediates match bit for bit.
+    """
+    fx = np.fft.fftfreq(n, step)[:, None].astype(np.float64)
+    fy = fx.T
+    f = np.hypot(fx, fy)
+    with np.errstate(all="ignore"):
+        t = np.where((fx == 0.0) & (fy == 0.0), 0.0, fy / fx)
+    arg = np.arctan(t)
+    return tuple(torch.as_tensor(a, dtype=dtype, device=device)
+                 for a in (f, f * np.cos(arg), f * np.sin(arg)))
+
+
+def pupil_mask(radius: float, width: int, oc: float = 0.0,
+               inverse: bool = False, dtype=torch.float32, device="cpu"):
+    """Annular pupil as a tensor: 1 where ``oc <= rho < 1`` (rho in units
+    of ``radius``), centred on ``(width-1)/2`` as the reference's
+    ``pupil_mask`` (psfrec.py:190-203)."""
+    c = (width - 1) / 2.0
+    y = np.arange(width, dtype=np.float64)[:, None] - c
+    x = np.arange(width, dtype=np.float64)[None, :] - c
+    rho = np.hypot(y, x) / radius
+    m = (rho < 1.0) & (rho >= oc)
+    if inverse:
+        m = ~m
+    return torch.as_tensor(m.astype(np.float64), dtype=dtype, device=device)
 
 
 def centered_freq_radius(dim: int, L: float):

@@ -1,7 +1,7 @@
-// What the tensor-core bodies of the zoom kernels share (zoom_dft_tc.cu:
-// K1, K3, K5; zoom_anchor_tc.cu: K6): the cp.async, ldmatrix and
-// mma.sync.m16n8k16 bf16 wrappers, the output store, and the contraction
-// of zoom_precision "highest".
+// What the tensor-core bodies share (zoom_dft_tc.cu: K1, K3, K5;
+// zoom_anchor_tc.cu: K6; conv_dft_tc.cu: K2 at "high"): the cp.async,
+// ldmatrix and mma.sync.m16n8k16 bf16 wrappers, and for the zoom kernels
+// the output store and the contraction of zoom_precision "highest".
 //
 // "highest" is the port of the JAX package's Precision.HIGHEST contraction
 // (muse_psfr_tpu/ops/zoom_dft.py:_mxu_contract), which the TPU's matrix

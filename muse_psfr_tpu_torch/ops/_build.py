@@ -41,7 +41,8 @@ KERNELS = {"zoom_dft": ("zoom_dft", "LAUNCHES"),
            "zoom_dft_tc_disc": ("zoom_dft", "TC_DISC_LAUNCHES"),
            "zoom_dft_anchor": ("zoom_dft", "ANCHOR_LAUNCHES"),
            "zoom_dft_tc_anchor": ("zoom_dft", "TC_ANCHOR_LAUNCHES"),
-           "conv_dft": ("conv_dft", "LAUNCHES")}
+           "conv_dft": ("conv_dft", "LAUNCHES"),
+           "conv_dft_tc": ("conv_dft", "TC_LAUNCHES")}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -69,6 +70,7 @@ _SIGNATURES = {
     + [_I] * 8 + [_P],
     # planes, gtt_r, gtt_i, gi_r, gi_i, C, S, out, B, nl, n, L, off, stream
     "muse_fused_conv_chain": [_P] * 8 + [_I] * 5 + [_P],
+    "muse_fused_conv_chain_tc": [_P] * 8 + [_I] * 5 + [_P],
 }
 
 

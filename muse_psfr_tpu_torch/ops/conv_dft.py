@@ -9,14 +9,20 @@ are trimmed to the support (see :func:`_trimmed_mats`): the forward
 transform contracts only the n nonzero rows/columns and the inverse
 computes only the n 'same'-window rows/columns, so the crop is free.
 
-:func:`fused_conv_chain` launches the hand-written CUDA kernel
-(``csrc/conv_dft.cu``; counterpart of
-``muse_psfr_tpu/ops/conv_dft.py:fused_conv_chain``) for CUDA tensors: a
-block per (row, group of planes), the whole chain of each plane in shared
-memory, every transform a register-tiled float32 contraction against the
-two DFT matrices C and S, of which the six trimmed matrices are
-sub-blocks.  For CPU tensors it runs :func:`fused_conv_chain_reference`,
-the same operations in plain PyTorch.  The kernel spectra come from
+:func:`fused_conv_chain` launches the hand-written CUDA kernels
+(counterpart of ``muse_psfr_tpu/ops/conv_dft.py:fused_conv_chain``) for
+CUDA tensors: a block per (row, group of planes), the whole chain of each
+plane in shared memory, every transform a contraction against the two DFT
+matrices C and S, of which the six trimmed matrices are sub-blocks.
+``precision`` (``cfg.conv_precision``) chooses the body, as it chooses
+``_mxu_contract``'s scheme in the JAX kernel: "highest"
+(``csrc/conv_dft.cu``) contracts in register-tiled float32 FMAs; "high"
+(``csrc/conv_dft_tc.cu``) runs every contraction as the 3-pass bf16 split
+``a_hi@b_hi + a_hi@b_lo + a_lo@b_hi`` with float32 accumulation on the
+tensor cores, both operands split inside the kernel and every
+intermediate kept in float32 between the products.  Anything else raises.
+For CPU tensors it runs :func:`fused_conv_chain_reference`, the same
+operations in plain PyTorch.  The kernel spectra come from
 ``otf/convolve.py:_dft_spectra``.
 """
 
@@ -26,9 +32,16 @@ import torch
 from . import _build
 from ..otf.convolve import _dft_mats, _dft_mats_np, _same_fft_size
 from ..utils.device import host_const
+from .zoom_dft import contract
 
-#: successful launches of the CUDA kernel (see ops/_build.py)
+#: successful launches of the float32 body ("highest") and of the
+#: tensor-core body ("high"); see ops/_build.py
 LAUNCHES = 0
+TC_LAUNCHES = 0
+
+#: the tiers K2 computes (``fused_conv_chain`` of the JAX package takes
+#: the same two)
+CONV_PRECISIONS = ("highest", "high")
 
 #: largest plane side and transform size the kernel takes
 MAX_SIZE = 64
@@ -60,45 +73,72 @@ def _mats(L, n, off, device, dtype):
                  for i in range(6))
 
 
-def _conv_same(x, gr, gi, mats):
+def check_precision(precision):
+    if precision not in CONV_PRECISIONS:
+        raise ValueError(f"unsupported conv precision {precision!r}; the "
+                         "fused conv chain supports 'highest' and 'high'")
+
+
+def _conv_same(x, gr, gi, mats, precision="highest"):
     """One trimmed circular-DFT 'same' convolution of planes ``x``
-    (..., n, n) with kernel spectra ``(gr, gi)`` (..., L, L)."""
+    (..., n, n) with kernel spectra ``(gr, gi)`` (..., L, L), every
+    product at ``precision``: one float32 matmul at "highest"; at "high"
+    in the tensor-core body's order of sums
+    (``ops/zoom_dft.py:contract``): each operand is split anew before each
+    product (``_mxu_contract`` of the JAX package), the product of each 32
+    contraction rows is the sum of its three passes, and the steps (at
+    most two: the contractions are 40 or 64 long at dimpsf = 40) add up in
+    float32."""
     csn, crc, crs, csel, cdc, cds = mats
     L = csn.shape[0] // 2
     n = x.shape[-1]
-    ab = torch.matmul(csn, x)                             # (..., 2L, n)
+
+    def mm(a, b):
+        return (torch.matmul(a, b) if precision == "highest"
+                else contract(a, b, precision))
+
+    ab = mm(csn, x)                                       # (..., 2L, n)
     a, b = ab[..., :L, :], ab[..., L:, :]
-    fr = torch.matmul(a, crc) - torch.matmul(b, crs)
-    fi = -(torch.matmul(a, crs) + torch.matmul(b, crc))
+    fr = mm(a, crc) - mm(b, crs)
+    fi = -(mm(a, crs) + mm(b, crc))
     hr = fr * gr - fi * gi
     hi = fr * gi + fi * gr
-    u = torch.matmul(csel, hr)                            # (..., 2n, L)
-    v = torch.matmul(csel, hi)
+    u = mm(csel, hr)                                      # (..., 2n, L)
+    v = mm(csel, hi)
     aa = u[..., :n, :] - v[..., n:, :]
     bb = v[..., :n, :] + u[..., n:, :]
-    return (torch.matmul(aa, cdc) - torch.matmul(bb, cds)) * (1.0 / (L * L))
+    return (mm(aa, cdc) - mm(bb, cds)) * (1.0 / (L * L))
 
 
-def fused_conv_chain_reference(planes, gtt_r, gtt_i, gi_r, gi_i, n_ker):
+def fused_conv_chain_reference(planes, gtt_r, gtt_i, gi_r, gi_i, n_ker,
+                               precision="highest"):
     """Plain PyTorch K2.  planes (B, nl, n, n); gtt_r/gtt_i (B, L, L) the
     rows' tip-tilt kernel spectra; gi_r/gi_i (nl, L, L) the planes'
     intrinsic spectra.  Returns (B, nl, n, n): the tip-tilt then the
-    intrinsic 'same' convolution of every plane."""
+    intrinsic 'same' convolution of every plane, every contraction at
+    ``precision`` (:func:`_conv_same`); the second convolution takes the
+    first one's float32 result."""
+    check_precision(precision)
     L, n = gtt_r.shape[-1], planes.shape[-1]
     mats = _mats(L, n, (n_ker - 1) // 2, planes.device, planes.dtype)
-    y = _conv_same(planes, gtt_r[:, None], gtt_i[:, None], mats)
-    return _conv_same(y, gi_r[None], gi_i[None], mats)
+    y = _conv_same(planes, gtt_r[:, None], gtt_i[:, None], mats, precision)
+    return _conv_same(y, gi_r[None], gi_i[None], mats, precision)
 
 
-def fused_conv_chain(planes, gtt_r, gtt_i, gi_r, gi_i, n_ker):
-    """K2 on the tensors' device: the CUDA kernel for CUDA tensors (float32
+def fused_conv_chain(planes, gtt_r, gtt_i, gi_r, gi_i, n_ker,
+                     precision="highest"):
+    """K2 on the tensors' device: a CUDA kernel for CUDA tensors (float32
     only, plane side and transform size at most :data:`MAX_SIZE`; anything
-    else raises), :func:`fused_conv_chain_reference` for CPU tensors.
-    Shapes as in the reference; every tensor contiguous."""
-    global LAUNCHES
+    else raises), the float32 body at ``precision`` "highest" and the
+    tensor-core body at "high", each with its own launch counter and
+    neither standing in for the other;
+    :func:`fused_conv_chain_reference` for CPU tensors.  Shapes as in the
+    reference; every tensor contiguous."""
+    global LAUNCHES, TC_LAUNCHES
+    check_precision(precision)
     if planes.device.type == "cpu":
         return fused_conv_chain_reference(planes, gtt_r, gtt_i, gi_r, gi_i,
-                                          n_ker)
+                                          n_ker, precision)
     B, nl, n, _ = planes.shape
     L = _same_fft_size(n, n_ker)
     _build.check_operands("fused_conv_chain", planes.device, {
@@ -111,11 +151,17 @@ def fused_conv_chain(planes, gtt_r, gtt_i, gi_r, gi_i, n_ker):
                          f"size {MAX_SIZE}")
     c, s = _dft_mats(L, planes.device, torch.float32)
     out = torch.empty_like(planes)
-    err = _build.library().muse_fused_conv_chain(
+    lib = _build.library()
+    launch = (lib.muse_fused_conv_chain_tc if precision == "high"
+              else lib.muse_fused_conv_chain)
+    err = launch(
         planes.data_ptr(), gtt_r.data_ptr(), gtt_i.data_ptr(),
         gi_r.data_ptr(), gi_i.data_ptr(), c.data_ptr(), s.data_ptr(),
         out.data_ptr(), B, nl, n, L, (n_ker - 1) // 2,
         torch.cuda.current_stream(planes.device).cuda_stream)
-    _build.check_launch(err, "fused_conv_chain")
-    LAUNCHES += 1
+    _build.check_launch(err, f"fused_conv_chain at {precision}")
+    if precision == "high":
+        TC_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from . import _build
-from ..config import ZOOM_PRECISIONS
+from ..config import MATMUL_PRECISIONS, ZOOM_PRECISIONS
 from ..utils.device import host_const
 
 #: successful launches of the six-pass body ("highest") with one row slice
@@ -162,6 +162,37 @@ def contract(a2, g, precision="highest"):
                                 g[..., k:k + K_STEP, :])
         u = part if u is None else u + part
     return u
+
+
+def matmul_tier(a, b, precision="highest"):
+    """``a @ b`` at a tier of ``cfg.matmul_precision``/``cfg.conv_precision``
+    (``jnp.matmul(precision=...)`` of the JAX package on the TPU), for the
+    plain large products around the kernels: "highest" is one float32
+    matmul (TF32 off, ``utils/device.py``); "high" the three products
+    ``a_hi@b_hi + a_hi@b_lo + a_lo@b_hi`` of the bf16 split
+    (:func:`split_bf16`); "default" the one product ``a_hi@b_hi``.
+
+    The bf16 parts are multiplied as float32 tensors: a matmul of two
+    bf16 tensors returns bf16, which would round every sum to 8 bits and
+    wreck the split, while a float32 matmul of bf16-valued operands forms
+    each product exactly and sums in float32 on any device and PyTorch
+    version.  The price is that nothing here runs on the tensor cores:
+    "high" costs three float32 matmuls where "highest" costs one, and
+    "default" costs as much as "highest"; the tiers reproduce the JAX
+    package's arithmetic, not its pass counts.  Unlike :func:`contract`
+    the sum runs over the whole contraction at once, as XLA's dot does.
+    Operands of another type than float32 contract in one matmul."""
+    if precision not in MATMUL_PRECISIONS:
+        raise ValueError(f"unsupported matmul precision {precision!r}, "
+                         f"expected one of {MATMUL_PRECISIONS}")
+    if precision == "highest" or a.dtype != torch.float32:
+        return torch.matmul(a, b)
+    a_hi, a_lo = (p.to(a.dtype) for p in split_bf16(a))
+    b_hi, b_lo = (p.to(b.dtype) for p in split_bf16(b))
+    if precision == "default":
+        return torch.matmul(a_hi, b_hi)
+    return (torch.matmul(a_hi, b_hi) + torch.matmul(a_hi, b_lo)
+            + torch.matmul(a_lo, b_hi))
 
 
 def damped_otf(dphi, dl, alpha, w, exp2=False):

@@ -9,8 +9,13 @@ linear convolutions done as circular transforms at the minimal alias-free
 size (:func:`_same_fft_size`), exact on the kept window.
 
 On the FFT-free route (``cfg.use_fft=False``) with ``cfg.use_fused_conv``
-both convolutions run as one K2 launch (``ops/conv_dft.py``).
+both convolutions run as one K2 launch (``ops/conv_dft.py``).  On that
+route ``cfg.conv_precision`` chooses the tier of every DFT product, of the
+plain ones (``ops/zoom_dft.py:matmul_tier``) and of K2's body, where the
+card runs them (:func:`_conv_precision`).
 """
+
+from functools import partial
 
 import numpy as np
 import torch
@@ -56,33 +61,42 @@ def _dft_mats(n: int, device, dtype):
                             device, dtype) for i in range(2))
 
 
-def _dft_spectra(x, nfft: int):
+def _mm(precision):
+    """``matmul`` at a tier of ``cfg.conv_precision``."""
+    from ..ops.zoom_dft import matmul_tier
+    return partial(matmul_tier, precision=precision)
+
+
+def _dft_spectra(x, nfft: int, precision="highest"):
     """(re, im) of the symmetric circular DFT ``W x W`` of zero-padded
     ``x`` (..., h, w) at size ``nfft``: the kernel spectra of
-    :func:`_dft_convolve_same` and of K2."""
+    :func:`_dft_convolve_same` and of K2, every product at ``precision``
+    (``ops/zoom_dft.py:matmul_tier``)."""
     c, s = _dft_mats(nfft, x.device, x.dtype)
+    mm = _mm(precision)
     xp = F.pad(x, (0, nfft - x.shape[-1], 0, nfft - x.shape[-2]))
-    a = torch.matmul(c, xp)
-    b = torch.matmul(s, xp)
-    return (torch.matmul(a, c) - torch.matmul(b, s),
-            -(torch.matmul(a, s) + torch.matmul(b, c)))
+    a = mm(c, xp)
+    b = mm(s, xp)
+    return mm(a, c) - mm(b, s), -(mm(a, s) + mm(b, c))
 
 
-def _dft_convolve_same(planes, kernels, n_img: int, n_ker: int):
+def _dft_convolve_same(planes, kernels, n_img: int, n_ker: int,
+                       precision="highest"):
     """'same' linear convolution via circular DFTs as real matmuls: the
     maths of :func:`_fft_convolve_same` with every transform a dense
     (nfft, nfft) product (6 real matmuls forward, 6 for the real part of
-    the inverse)."""
+    the inverse), each at ``precision``."""
     nfft = _same_fft_size(n_img, n_ker)
     c, s = _dft_mats(nfft, planes.device, planes.dtype)
-    fr, fi = _dft_spectra(planes, nfft)
-    gr, gi = _dft_spectra(kernels, nfft)
+    mm = _mm(precision)
+    fr, fi = _dft_spectra(planes, nfft, precision)
+    gr, gi = _dft_spectra(kernels, nfft, precision)
     hr = fr * gr - fi * gi
     hi = fr * gi + fi * gr
     # real part of conj(W) H conj(W) / nfft^2
-    a = torch.matmul(c, hr) - torch.matmul(s, hi)
-    b = torch.matmul(c, hi) + torch.matmul(s, hr)
-    full = (torch.matmul(a, c) - torch.matmul(b, s)) / (nfft * nfft)
+    a = mm(c, hr) - mm(s, hi)
+    b = mm(c, hi) + mm(s, hr)
+    full = (mm(a, c) - mm(b, s)) / (nfft * nfft)
     off = (n_ker - 1) // 2
     return full[..., off:off + n_img, off:off + n_img]
 
@@ -111,10 +125,25 @@ def tip_tilt_fwhm(seeing, GL, L0, cfg: GalacsiConfig):
             4.85e-6 * 2.35 / cfg.pixscale)
 
 
+def _conv_precision(cfg: GalacsiConfig, device) -> str:
+    """The tier of the FFT-free convolution products for tensors on
+    ``device``: ``cfg.conv_precision`` on the card, "highest" on the CPU.
+    The JAX package hands the field to ``jnp.matmul`` and to its Pallas
+    chain, which means passes of the TPU's matrix unit; off the TPU XLA
+    contracts in full precision whatever the field says, and so does the
+    port's CPU run, which the CPU tests hold to the JAX package's (the
+    rule of ``otf/psf.py:_zoom_precision``)."""
+    return cfg.conv_precision if torch.device(device).type == "cuda" \
+        else "highest"
+
+
 def convolve_final(psf, lbda_nm, seeing, GL, L0, cfg: GalacsiConfig):
     """AO PSF cubes (B, nl, n, n) -> final PSF cubes (tip-tilt, then the
     MUSE-intrinsic Moffat).  ``lbda_nm`` (nl,), ``seeing``/``GL``/``L0``
-    (B,) tensors on the PSF's device."""
+    (B,) tensors on the PSF's device.  On the FFT-free route every DFT
+    product runs at :func:`_conv_precision`; K2 takes "highest" and
+    "high" and raises on "default", as the JAX package's fused chain
+    does."""
     n_img = psf.shape[-1]
     n_ker = n_img + (n_img % 2 == 0)  # force odd (psfrec.py:911-915)
 
@@ -130,11 +159,13 @@ def convolve_final(psf, lbda_nm, seeing, GL, L0, cfg: GalacsiConfig):
         # shared by all rows, the tip-tilt one is one kernel per row)
         from ..ops.conv_dft import fused_conv_chain
         nfft = _same_fft_size(n_img, n_ker)
-        gtt_r, gtt_i = _dft_spectra(k_tt, nfft)
-        gi_r, gi_i = _dft_spectra(k_i, nfft)
+        prec = _conv_precision(cfg, psf.device)
+        gtt_r, gtt_i = _dft_spectra(k_tt, nfft, prec)
+        gi_r, gi_i = _dft_spectra(k_i, nfft, prec)
         return fused_conv_chain(psf.contiguous(), gtt_r.contiguous(),
                                 gtt_i.contiguous(), gi_r.contiguous(),
-                                gi_i.contiguous(), n_ker)
-    conv = _fft_convolve_same if cfg.use_fft else _dft_convolve_same
+                                gi_i.contiguous(), n_ker, precision=prec)
+    conv = _fft_convolve_same if cfg.use_fft else partial(
+        _dft_convolve_same, precision=_conv_precision(cfg, psf.device))
     out = conv(psf, k_tt[:, None], n_img, n_ker)
     return conv(out, k_i[None], n_img, n_ker)

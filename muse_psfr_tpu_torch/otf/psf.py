@@ -23,6 +23,8 @@ per-wavelength body.  ``cfg.otf_blue`` runs the bluest wavelengths on a
 smaller centred sub-window of the same structure function.
 """
 
+from functools import partial
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -31,7 +33,7 @@ from ..config import GalacsiConfig
 from ..core.grids import centered_freq_radius
 from ..core.vonkarman import (fitting_expansion_max_rel_error,
                               fitting_expansion_spec)
-from ..utils.device import host_const
+from ..utils.device import host_const, resolve_device, torch_dtype
 from ..utils.log import get_logger
 
 logger = get_logger("psf")
@@ -120,6 +122,21 @@ def _idft(dim, device, dtype, cols=None):
     return tuple(host_const(("idft", dim, cols, i),
                             lambda i=i: _centered_idft_np(dim, cols)[i],
                             device, dtype) for i in range(2))
+
+
+def _mm(cfg: GalacsiConfig, device):
+    """``matmul`` at the tier of ``cfg.matmul_precision`` for tensors on
+    ``device`` (counterpart of the JAX package's ``_mm``): on the card
+    ``ops/zoom_dft.py:matmul_tier`` at the configured tier; on the CPU
+    ``torch.matmul``, whatever the field says.  The field counts passes of
+    the TPU's matrix unit, and the JAX package's run off the TPU contracts
+    in full precision (XLA); the port's CPU run does the same, so the CPU
+    tests hold the two to each other (the rule of
+    :func:`_zoom_precision`)."""
+    if torch.device(device).type != "cuda":
+        return torch.matmul
+    from ..ops.zoom_dft import matmul_tier
+    return partial(matmul_tier, precision=cfg.matmul_precision)
 
 
 def _fold_weights(dim: int, S: int, ncw: int):
@@ -252,10 +269,11 @@ def dphi_base_split(w, delta, cfg: GalacsiConfig):
     s = delta.shape[-1]
     x = delta
     bg00 = torch.sum(x, dim=(-2, -1))[..., None, None] / (L * L)
+    mm = _mm(cfg, dev)
     if cfg.otf_window is None:
         c_blk, s_blk = _idft(dim, dev, dtype, cols=(lo, s))
-        re_blk = (torch.matmul(torch.matmul(c_blk, x), c_blk.T)
-                  - torch.matmul(torch.matmul(s_blk, x), s_blk.T))
+        re_blk = (mm(mm(c_blk, x), c_blk.T)
+                  - mm(mm(s_blk, x), s_blk.T))
     else:
         # fold: symmetrise the correction block first (delta is NOT
         # f -> -f symmetric; its global mirror spans [lo, lo + s], one
@@ -265,10 +283,8 @@ def dphi_base_split(w, delta, cfg: GalacsiConfig):
         xp = F.pad(x, (0, 1, 0, 1))
         xs = 0.5 * (xp + torch.flip(xp, dims=(-2, -1)))
         c_blk, s_blk = _idft(dim, dev, dtype, cols=(lo, s + 1))
-        re_blk = (torch.matmul(torch.matmul(c_blk[r_lo:r_hi], xs),
-                               c_blk[r_lo:col_hi].T)
-                  - torch.matmul(torch.matmul(s_blk[r_lo:r_hi], xs),
-                                 s_blk[r_lo:col_hi].T))
+        re_blk = (mm(mm(c_blk[r_lo:r_hi], xs), c_blk[r_lo:col_hi].T)
+                  - mm(mm(s_blk[r_lo:r_hi], xs), s_blk[r_lo:col_hi].T))
     return shared[:, None] + 2.0 * (bg00 - re_blk * scale)
 
 
@@ -293,9 +309,9 @@ def dphi_base(psd, cfg: GalacsiConfig):
 
     c, s = _idft(dim, dev, dtype)
     x = psd
+    mm = _mm(cfg, dev)
     if cfg.otf_window is None:
-        re_bg = (torch.matmul(torch.matmul(c, x), c.T)
-                 - torch.matmul(torch.matmul(s, x), s.T))
+        re_bg = mm(mm(c, x), c.T) - mm(mm(s, x), s.T)
     else:
         # fold: the real part of the inverse transform equals the
         # transform of the symmetrised PSD, whose contractions fold onto
@@ -307,10 +323,8 @@ def dphi_base(psd, cfg: GalacsiConfig):
         xs = 0.5 * (x + torch.roll(torch.flip(x, dims=(-2, -1)), (1, 1),
                                    dims=(-2, -1)))
         xh = xs[..., :nh]
-        re_bg = (torch.matmul(torch.matmul(c[r_lo:r_hi], xh) * vh,
-                              c[r_lo:col_hi, :nh].T)
-                 - torch.matmul(torch.matmul(s[r_lo:r_hi], xh) * vh,
-                                s[r_lo:col_hi, :nh].T))
+        re_bg = (mm(mm(c[r_lo:r_hi], xh) * vh, c[r_lo:col_hi, :nh].T)
+                 - mm(mm(s[r_lo:r_hi], xh) * vh, s[r_lo:col_hi, :nh].T))
     bg00 = torch.sum(x, dim=(-2, -1))[..., None, None] / (L * L)
     return 2.0 * (bg00 - re_bg * scale)
 
@@ -594,8 +608,9 @@ def _psf_chunk_fused(base, lb_k, npix_k, cfg: GalacsiConfig):
         else:
             u = zoom_dft.fused_exp_zoom(base, dl, a2, alpha, w, **kw)
     m = 2 * nout                                          # u: (B, k, 4n, cols)
-    p = (torch.matmul(u[:, :, :m], ar2.transpose(-1, -2))
-         - torch.matmul(u[:, :, m:], ai2.transpose(-1, -2)))   # (B, k, m, m)
+    mm = _mm(cfg, base.device)
+    p = (mm(u[:, :, :m], ar2.transpose(-1, -2))
+         - mm(u[:, :, m:], ai2.transpose(-1, -2)))        # (B, k, m, m)
     out = _combine_bilinear(torch.clamp_min(p, 0.0), t, nout)
     return out / torch.sum(out, dim=(-2, -1), keepdim=True)
 
@@ -609,14 +624,15 @@ def _psf_samples_zoom(mean_otf, i0, t, cfg: GalacsiConfig):
     r_lo, r_hi, col_hi, S = _window_bounds(cfg)
     idx = torch.cat([i0, i0 + 1], dim=-1)                # (k, 2n)
     ar, ai = _zoom_dft_matrices(idx, dim, dtype)
-    u_r = torch.matmul(ar[..., r_lo:r_hi], mean_otf)     # (B, k, 2n, cols)
-    u_i = torch.matmul(ai[..., r_lo:r_hi], mean_otf)
+    mm = _mm(cfg, mean_otf.device)
+    u_r = mm(ar[..., r_lo:r_hi], mean_otf)               # (B, k, 2n, cols)
+    u_i = mm(ai[..., r_lo:r_hi], mean_otf)
     if cfg.otf_window is not None:
         v = torch.as_tensor(_fold_weights(dim, S, mean_otf.shape[-1]),
                             dtype=dtype, device=mean_otf.device)
         u_r, u_i = u_r * v, u_i * v
-    p = (torch.matmul(u_r, ar[..., r_lo:col_hi].transpose(-1, -2))
-         - torch.matmul(u_i, ai[..., r_lo:col_hi].transpose(-1, -2)))
+    p = (mm(u_r, ar[..., r_lo:col_hi].transpose(-1, -2))
+         - mm(u_i, ai[..., r_lo:col_hi].transpose(-1, -2)))
     return _combine_bilinear(torch.clamp_min(p, 0.0), t, cfg.dimpsf)
 
 
@@ -664,6 +680,107 @@ def _psf_chunk_plain(base, lb_k, npix_k, cfg: GalacsiConfig):
         psf = torch.clamp_min(_psf_plane_fft(mean_otf), 0.0)
         out = _bilinear_regrid(psf, i0, t)
     return out / torch.sum(out, dim=(-2, -1), keepdim=True)
+
+
+def psd_to_psf(psd, pup, D, lbda, phase_static=None, samp=None, FoV=None,
+               return_all=False, dtype=torch.float64, device="cuda"):
+    """General long-exposure PSF from one residual PSD [nm^2] and a pupil.
+
+    Standalone equivalent of the reference ``psd_to_psf``
+    (psfrec.py:689-807) for single transforms (the batched pipeline uses
+    :func:`psf_cube`): supports sub-Nyquist output sampling (central crop
+    of the structure function), an optional static pupil phase [nm], and
+    ``return_all`` -> (psf, sampout, FoV).  ``lbda`` in metres.  Runs on
+    ``device`` in ``dtype`` (float64 by default, on the card too) and
+    returns a tensor there.
+
+    The reference's oversampling branches are unreachable in its shipped
+    pipeline and crash when forced (``np.zeros(dimnum, dimnum)`` at
+    psfrec.py:738 is a TypeError; cubic ``interpolate`` raises
+    NotImplementedError at psfrec.py:640); they are rejected here with the
+    matching exception.
+    """
+    dev = resolve_device(device)
+    psd = torch.as_tensor(psd, dtype=dtype, device=dev)
+    pup = torch.as_tensor(pup, dtype=dtype, device=dev)
+    cdtype = torch.complex128 if dtype == torch.float64 else torch.complex64
+    dim = psd.shape[0]
+    npup = pup.shape[0]
+    sampnum = dim / npup
+    L = D * sampnum
+    if dim < 2 * npup:
+        logger.info("the PSD horizon must be at least two time larger than "
+                    "the pupil diameter")
+
+    convnm = 2 * np.pi / (lbda * 1e9)
+    bg = torch.fft.ifft2(torch.fft.fftshift(psd * convnm ** 2).to(cdtype))
+    bg = bg * (psd.numel() / L ** 2)
+    dphi = torch.fft.fftshift(2.0 * (bg[0, 0].real - bg.real))
+
+    sampin = samp if samp is not None else sampnum
+    if sampin < 2:
+        logger.info("PSF should be at least nyquist sampled")
+    dimnum = int(np.fix(dim * (sampin / sampnum) / 2)) * 2
+    sampout = dimnum / npup
+    if sampin <= sampnum:
+        ns = int(sampout * npup / 2)
+        lo = dim // 2 - ns
+        dphi2 = dphi[lo:lo + 2 * ns, lo:lo + 2 * ns]
+    else:
+        raise NotImplementedError(
+            "samp > dim/npup requires structure-function extrapolation, "
+            "which crashes in the reference (psfrec.py:738-744)")
+
+    fov_num = (lbda / (sampnum * D)) * dim / 4.85e-6
+    if FoV is not None and not np.allclose(float(FoV), fov_num):
+        raise NotImplementedError(
+            "FoV oversampling needs cubic interpolation, unimplemented in "
+            "the reference (psfrec.py:640)")
+    dimover, npupover = dimnum, npup
+
+    tab = torch.zeros((dimover, dimover), dtype=cdtype, device=dev)
+    pup_sum = torch.sum(pup)      # normaliser uses the unmodified pupil
+    if phase_static is not None:
+        phase = torch.as_tensor(phase_static, dtype=dtype, device=dev)
+        # the angle in the reference's order of operations: it reaches
+        # ~1e8 rad (phase in nm over lbda in m), where one rounding of
+        # the angle moves the PSF by ~1e-8
+        pup = pup * torch.polar(torch.ones_like(phase),
+                                phase * 2 * np.pi / lbda)
+    tab[:npupover, :npupover] = pup.to(cdtype)
+    dl_otf = torch.fft.fftshift(
+        torch.abs(torch.fft.fft2(torch.abs(torch.fft.ifft2(tab)) ** 2))
+        / pup_sum)
+
+    sys_otf = torch.fft.fftshift(torch.exp(-dphi2 / 2.0) * dl_otf)
+    psf = torch.fft.fftshift(torch.fft.ifft2(sys_otf.to(cdtype)).real)
+    psf = psf / torch.sum(psf)
+    if return_all:
+        return psf, sampout, fov_num * dimover / dim
+    return psf
+
+
+def psf_cube(psd, lbda_nm, cfg: GalacsiConfig, device="cuda"):
+    """PSF cube (nl, dimpsf, dimpsf) at the MUSE sampling from the PSD cube
+    of one telemetry row, a tensor on ``device``.
+
+    ``psd``: (ndir, dim, dim) image-centred residual PSD [nm^2/freq^2], or
+    (dim, dim) for a single direction (array or tensor); ``lbda_nm``: (nl,)
+    wavelengths [nm].  The crop sizes are decided in host float64 before
+    anything else (the .5-boundary QUIRK of :func:`lambda_crop_size`);
+    then :func:`dphi_base` and :func:`psf_cube_from_base` run in
+    ``cfg.dtype`` on ``device``.  The batched pipeline calls those two with
+    the rows as the leading dimension; this is the one-row entry point.
+    """
+    dev = resolve_device(device)
+    lb_host = np.asarray(lbda_nm.cpu() if torch.is_tensor(lbda_nm)
+                         else lbda_nm, np.float64)
+    npixc = lambda_crop_size(lb_host, cfg)
+    psd = torch.as_tensor(psd, dtype=torch_dtype(cfg.dtype), device=dev)
+    if psd.ndim == 2:
+        psd = psd[None]
+    base = dphi_base(psd[None], cfg)                # (1, ndir, rows, cols)
+    return psf_cube_from_base(base, lb_host, cfg, npixc=npixc)[0]
 
 
 def _blue_split_cfgs(cfg: GalacsiConfig, nl: int):

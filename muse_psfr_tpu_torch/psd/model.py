@@ -8,7 +8,13 @@ projectors) is independent of the telemetry and is precomputed on the
 host in float64 (:func:`_glao_static_transfer`, copied from the JAX
 package as is).  Per row only two multiply-adds with the von Karman
 spectra remain; the rows are the leading batch dimension of every tensor
-here (the JAX package vmaps one row at a time).
+of the batched model (the JAX package vmaps one row at a time).
+
+The general building blocks of the reference's PSD layer
+(:func:`wfs_transfer`, :func:`gs_phasors`, :func:`glao_reconstructor`,
+:func:`residual_psd_one_dir`, :func:`residual_variance`) are ported too,
+one frequency grid at a time on tensors of any device, with an explicit
+complex dtype; ``compat.py`` builds the reference's functions from them.
 """
 
 import math
@@ -17,7 +23,8 @@ import numpy as np
 import torch
 
 from ..config import GalacsiConfig
-from ..core.grids import centered_freq_radius, direction_grid, lgs_positions
+from ..core.grids import (centered_freq_radius, direction_grid,
+                          lgs_positions, pupil_mask)
 from ..core.vonkarman import (CST_VK_EXACT, fitting_expansion_spec,
                               fitting_psd)
 from ..utils.device import host_const
@@ -30,6 +37,134 @@ def seeing_to_r0(seeing, lbda_um=0.5, zenith_deg=0.0):
     r0_half = 0.976 * 0.5 / seeing / 4.85
     z = math.cos(math.radians(zenith_deg)) ** 0.6
     return r0_half * (2.0 * lbda_um) ** 1.2 * z
+
+
+def wfs_transfer(f, f_x, f_y, pitch, strict, cdtype):
+    """Shack-Hartmann transfer function ``2*pi*i*f*sinc(p fx)*sinc(p fy)``,
+    zeroed past the cutoff.
+
+    ``pitch`` may be a scalar (one transfer function shared by all guide
+    stars, the GALACSI case) or a (nb_gs,) tensor (per-WFS pitches, giving
+    a (nb_gs, s, s) result as in the reference's general code path).
+
+    QUIRK (psfrec.py:251-257, 429-435): the zeroing mask is
+    ``((f != 0) & (|f_x| >= fc)) | (|f_y| >= fc)``: '&' binds before '|'
+    in the original's un-parenthesised expression.  The reconstructor uses
+    '>=', the residual model '>' (``strict``); the cutoff lands exactly on
+    grid frequencies, so the two differ.
+    """
+    pitch = torch.as_tensor(pitch, dtype=f.dtype, device=f.device)
+    if pitch.ndim == 1:
+        pitch = pitch[:, None, None]
+    amp = 2.0 * np.pi * f * torch.sinc(pitch * f_x) * torch.sinc(pitch * f_y)
+    fc = 1.0 / (2.0 * pitch)
+    if strict:
+        kill = ((f != 0) & (torch.abs(f_x) > fc)) | (torch.abs(f_y) > fc)
+    else:
+        kill = ((f != 0) & (torch.abs(f_x) >= fc)) | (torch.abs(f_y) >= fc)
+    return torch.where(kill, torch.zeros_like(amp), amp).to(cdtype) * 1j
+
+
+def gs_phasors(f_x, f_y, poslgs_amin):
+    """Per-guide-star pupil-plane phase slopes (nb_gs, s, s) [rad/m of
+    altitude]; ``poslgs_amin`` (2, nb_gs) in arcmin."""
+    return (f_x[None] * poslgs_amin[0, :, None, None] +
+            f_y[None] * poslgs_amin[1, :, None, None]) * ARCMIN_TO_RAD
+
+
+def _phasor(angle, cdtype):
+    """``exp(i * angle)`` in ``cdtype``."""
+    return torch.polar(torch.ones_like(angle), angle).to(cdtype)
+
+
+def _zero_dc(x):
+    x = x.clone()
+    x[..., 0, 0] = 0.0
+    return x
+
+
+def glao_reconstructor(f, f_x, f_y, poslgs_amin, gs_mask, sigr, pitch,
+                       h_recons, cdtype, dsp_recons=None):
+    """Closed-form GLAO reconstructor ``W`` of shape (nb_gs, s, s).
+
+    Replaces reference ``calc_mat_rec_glao_finale`` (psfrec.py:218-364):
+    with a single reconstructed layer the per-frequency system is scalar,
+    so ``W_g = conj(M_g)/sigma_g / (sum_k |M_k|^2/sigma_k [+ prior])``
+    stands for its per-pixel inversion loop.  A masked guide star has
+    ``M_g = 0``, which is the 3-star algebra exactly.  ``dsp_recons``
+    enables the MAP prior (law != LSE); the shipped GALACSI pipeline is
+    LSE.  The DC term is zeroed (psfrec.py:351-352).
+    """
+    w = wfs_transfer(f, f_x, f_y, pitch, strict=False, cdtype=cdtype)
+    if w.ndim == 2:
+        w = w[None]                      # shared transfer fn -> (1, s, s)
+    ph = gs_phasors(f_x, f_y, poslgs_amin)
+    M = (w * _phasor(2.0 * np.pi * h_recons * ph, cdtype)
+         * gs_mask[:, None, None])
+    num = M.conj() / sigr[:, None, None]
+    den = torch.sum((M * num).real, dim=0)
+    if dsp_recons is not None:
+        # piston filtered (psfrec.py:305)
+        den = den + _zero_dc(1.0 / dsp_recons)
+    inv = torch.where(den != 0,
+                      1.0 / torch.where(den == 0, torch.ones_like(den), den),
+                      torch.zeros_like(den))
+    return num * _zero_dc(inv)[None]
+
+
+def residual_psd_one_dir(f, f_x, f_y, poslgs_amin, gs_mask, beta_amin, sigv,
+                         dsp_layers, h_layers, h_dm, W, td, ti, wind, pitch,
+                         cdtype):
+    """Residual phase PSD (s, s) for one evaluation direction.
+
+    Reconstruction error + propagated WFS noise with servo-lag phasors
+    (reference ``calc_dsp_res_glao_finale`` psfrec.py:367-525 with
+    tempo=True, fitting=True, the shipped path; the final band-cut branch
+    there is dead).  ``dsp_layers`` (l, s, s), ``h_layers`` (l,), ``wind``
+    (2, l), ``ti``/``sigv``/``gs_mask`` (g,), ``W`` (g, s, s) complex.
+    """
+    w = wfs_transfer(f, f_x, f_y, pitch, strict=True, cdtype=cdtype)
+    if w.ndim == 2:
+        w = w[None]                      # shared transfer fn -> (1, s, s)
+    ph = gs_phasors(f_x, f_y, poslgs_amin)                # (g, s, s)
+
+    # model matrix for the true profile, with the servo-lag sinc
+    # (l = true layer, g = guide star)
+    lag = torch.sinc(
+        wind[0, :, None, None, None] * ti[None, :, None, None] * f_x
+        + wind[1, :, None, None, None] * ti[None, :, None, None] * f_y)
+    Mv = (lag * w[None] *
+          _phasor(2.0 * np.pi * h_layers[:, None, None, None] * ph[None],
+                  cdtype) *
+          gs_mask[None, :, None, None])                         # (l, g, s, s)
+
+    # projector onto the evaluation direction, with frozen-flow back-shift
+    dT = torch.max(ti) + td
+    bdot = beta_amin[0] * f_x + beta_amin[1] * f_y
+    p_beta = _phasor(2.0 * np.pi * (
+        h_layers[:, None, None] * ARCMIN_TO_RAD * bdot[None]
+        - dT * (wind[0, :, None, None] * f_x + wind[1, :, None, None] * f_y)),
+        cdtype)
+    p_dm = _phasor(2.0 * np.pi * h_dm * ARCMIN_TO_RAD * bdot, cdtype)
+
+    p_w = p_dm[None] * W                                        # (g, s, s)
+    p_model = torch.einsum("gxy,lgxy->lxy", p_w, Mv)
+    proj = p_beta - p_model
+
+    err_recons = torch.sum(torch.abs(proj) ** 2 * dsp_layers, dim=0)
+    err_noise = torch.sum(torch.abs(p_w) ** 2 * sigv[:, None, None], dim=0)
+    return _zero_dc(err_recons) + _zero_dc(err_noise)
+
+
+def residual_variance(psd, pixsize, dpup):
+    """Residual variance [rad^2] from an FFT-ordered PSD, excluding the
+    central 1/D box (reference ``calc_var_from_psd``, psfrec.py:206-215).
+    Debug metric reported per direction at DEBUG level."""
+    box = (1.0 / dpup) / pixsize
+    mask = pupil_mask(box / 2.0, psd.shape[-1], inverse=True,
+                      dtype=psd.dtype, device=psd.device)
+    shifted = torch.fft.fftshift(psd, dim=(-2, -1)) * pixsize ** 2
+    return torch.sum(shifted * mask, dim=(-2, -1))
 
 
 def effective_wind_speed(h, cfg: GalacsiConfig) -> float:

@@ -24,8 +24,9 @@ def config_from_reference(fields: dict) -> GalacsiConfig:
     """The port's config from a JAX ``GalacsiConfig``'s fields: renamed
     knobs carried over under their port names (:data:`RENAMED`, e.g.
     ``use_pallas`` -> ``use_fused_zoom``, ``pallas_disc_skip`` ->
-    ``disc_skip``), the fields in :data:`TPU_LAYOUT_ONLY` and
-    :data:`NOT_YET_PORTED` dropped.  Unknown fields raise."""
+    ``disc_skip``), the fields in :data:`TPU_LAYOUT_ONLY` (and in
+    :data:`NOT_YET_PORTED`, now empty) dropped; the three ``*_precision``
+    fields carry over as they are.  Unknown fields raise."""
     names = {f.name for f in dataclasses.fields(GalacsiConfig)}
     kw = {}
     for key, value in fields.items():

@@ -1,7 +1,8 @@
 """The PyTorch port's GalacsiConfig against the JAX package's, field for
 field: every JAX field is ported with an equal default, renamed, or listed
-in TPU_LAYOUT_ONLY or NOT_YET_PORTED, and the derived grid properties
-agree; zoom_precision takes "high" and "highest" only."""
+in TPU_LAYOUT_ONLY (NOT_YET_PORTED is empty now), and the derived grid
+properties agree; zoom_precision takes "high" and "highest" only,
+matmul_precision and conv_precision what ``jax.lax.Precision`` takes."""
 
 import dataclasses
 
@@ -40,7 +41,7 @@ def test_rename_map_and_not_yet_ported_name_jax_fields():
                             "pallas_disc_min_ndir": "disc_min_ndir"}
     assert set(tcfg.RENAMED) <= set(jax_fields)
     assert set(tcfg.NOT_YET_PORTED) <= set(jax_fields)
-    assert set(tcfg.NOT_YET_PORTED) == {"matmul_precision", "conv_precision"}
+    assert tcfg.NOT_YET_PORTED == ()
     assert set(tcfg.TPU_LAYOUT_ONLY) == {"pallas_lambda_chunk",
                                         "pallas_dir_block",
                                         "pallas_conv_pack"}
@@ -107,3 +108,20 @@ def test_zoom_precision_is_ported_and_checked():
             tcfg.GalacsiConfig(zoom_precision=bad)
         with pytest.raises(ValueError, match="zoom_precision"):
             tcfg.TINY_CONFIG.with_(zoom_precision=bad)
+
+
+@pytest.mark.parametrize("name", ["matmul_precision", "conv_precision"])
+def test_precision_tier_fields_are_ported_and_checked(name):
+    """Both tier fields carry the JAX default "highest" and take the three
+    values ``jnp.matmul(precision=...)`` takes; anything else raises when
+    the config is made."""
+    port = _defaults(tcfg.GalacsiConfig)
+    assert port[name] == "highest" == _defaults(jcfg.GalacsiConfig)[name]
+    assert name not in tcfg.NOT_YET_PORTED + tcfg.TPU_LAYOUT_ONLY
+    assert tcfg.MATMUL_PRECISIONS == ("default", "high", "highest")
+    for value in tcfg.MATMUL_PRECISIONS:
+        assert getattr(tcfg.GalacsiConfig(**{name: value}), name) == value
+        assert getattr(tcfg.TINY_CONFIG.with_(**{name: value}), name) == value
+    for bad in ("HIGH", "float32", None, 3):
+        with pytest.raises(ValueError, match=name):
+            tcfg.GalacsiConfig(**{name: bad})

@@ -86,3 +86,36 @@ def test_coeff_l0_table_and_interp():
     got = tl0.tt_attenuation(torch.as_tensor(L0, **T64)).numpy()
     want = np.asarray(jl0.tt_attenuation(jnp.asarray(L0)))
     assert_allclose(got, want, rtol=1e-15, atol=0)
+
+
+@pytest.mark.parametrize("n,step", [(80, 8 / 40), (33, 0.25), (16, 1.0)])
+def test_fft_freq_polar(n, step):
+    """The reference's arctan(fy/fx) polar decomposition with
+    arg_f[0, 0] = 0, bit for bit in float64 and as float32 tensors."""
+    got = tgrids.fft_freq_polar(n, step, torch.float64)
+    want = jgrids.fft_freq_polar(n, step, jnp.float64)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64 and g.shape == (n, n)
+        assert np.array_equal(g.numpy(), np.asarray(w))
+    f, f_x, f_y = (g.numpy() for g in got)
+    assert f[0, 0] == f_x[0, 0] == f_y[0, 0] == 0.0
+    assert np.all(f_x >= 0)                      # f_x = |fx|: the quirk
+    assert_allclose(np.hypot(f_x, f_y), f, atol=1e-12)
+    got32 = tgrids.fft_freq_polar(n, step)
+    want32 = jgrids.fft_freq_polar(n, step)
+    for g, w in zip(got32, want32):
+        assert g.dtype == torch.float32
+        assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("radius,width,oc,inverse", [
+    (160.0, 320, 0.14, False), (5, 20, 0.2, False), (4.5, 17, 0.0, True),
+    (0.5, 8, 0.0, True), (3, 7, 0.5, False)])
+def test_pupil_mask(radius, width, oc, inverse):
+    got = tgrids.pupil_mask(radius, width, oc, inverse, torch.float64)
+    want = jgrids.pupil_mask(radius, width, oc, inverse, jnp.float64)
+    assert got.dtype == torch.float64 and got.shape == (width, width)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert set(np.unique(got.numpy())) <= {0.0, 1.0}
+    assert tgrids.pupil_mask(radius, width, oc, inverse).dtype == \
+        torch.float32

@@ -4,8 +4,12 @@ on the tensor cores against a float32 matmul per 32-row step, <= 2e-6 of
 max|U|; K3 against K1 <= 2e-6, and bit-identical on a rerun) and at "high"
 (three passes against their 3-pass plain versions, <= 2e-6: the same bf16
 products summed in another order; against "highest" <= 2e-5), K2 <= 1e-6,
-K1 on a strided structure function, and the batch night through the
-kernels.  Marked ``cuda``:
+K2 at "high" (the tensor-core body, <= 3e-5 of max|out| from its plain
+version: the tier's own distance from float64 is 1e-5, see
+``test_conv_high_kernel_matches_plain``), K1 on a strided structure
+function, the batch night through the kernels, the nights at a lower
+``conv_precision``/``matmul_precision`` and the float64 compat layer on
+the card against the CPU.  Marked ``cuda``:
 skipped where no CUDA card is present (CUDA kernels have no CPU mode).
 On a GPU machine:
 
@@ -359,3 +363,119 @@ def test_anchored_night_runs_k6(dev):
     assert counts["zoom_dft_tc_anchor"] > 0 and counts["zoom_dft_anchor"] == 0
     ref = process_batch(*args, npsflin=2, cfg=cfg, chunk=2, device="cpu")
     assert np.abs(psf_mean - ref[1]).max() <= 1e-5 * np.abs(ref[1]).max()
+
+
+@pytest.mark.parametrize("B,nl,n,nk", [(2, 3, 8, 9), (3, 2, 9, 9),
+                                       (1, 5, 24, 25), (3, 35, 40, 41),
+                                       (2, 4, 64, 1)])
+def test_conv_high_kernel_matches_plain(dev, B, nl, n, nk):
+    """K2 at "high" on its own counter, odd and padded plane sides, up to
+    the largest transform.  The kernel and the plain version form the same
+    three exact products per step and sum them in different float32 orders
+    (an mma truncates inside its sum); every intermediate is split anew,
+    and a split moves by up to 2^-17 of an operand that moved by one
+    rounding, so two orders of this arithmetic lie as far apart as each
+    lies from float64 (~1e-5 of max|out| at worst over these shapes).
+    Limit 3e-5, and the kernel no further from float64 than 1.5x the plain
+    version; bit-identical on a rerun."""
+    g = torch.Generator(device="cpu").manual_seed(1)
+    L = _same_fft_size(n, nk)
+    from muse_psfr_tpu_torch.otf.convolve import _dft_spectra
+    planes = torch.rand((B, nl, n, n), generator=g).to(dev)
+    ktt = torch.rand((B, nk, nk), generator=g).to(dev)
+    ki = torch.rand((nl, nk, nk), generator=g).to(dev)
+    spectra = [x.contiguous() for k in (ktt, ki) for x in _dft_spectra(k, L)]
+    before = _build.launch_counts()
+    got = conv_dft.fused_conv_chain(planes, *spectra, nk, precision="high")
+    assert _build.launch_counts() == dict(
+        before, conv_dft_tc=before["conv_dft_tc"] + 1)
+    want = conv_dft.fused_conv_chain_reference(planes, *spectra, nk,
+                                               precision="high")
+    assert _rel(got, want) <= 3e-5
+    w64 = conv_dft.fused_conv_chain_reference(
+        planes.double(), *(x.contiguous() for k in (ktt, ki)
+                           for x in _dft_spectra(k.double(), L)), nk)
+    assert _rel(got, w64) <= 3e-5
+    assert _rel(got, w64) <= 1.5 * _rel(want, w64) + 1e-6
+    assert torch.equal(got, conv_dft.fused_conv_chain(
+        planes, *spectra, nk, precision="high"))
+    with pytest.raises(ValueError, match="conv precision"):
+        conv_dft.fused_conv_chain(planes, *spectra, nk, precision="default")
+    with pytest.raises(ValueError):
+        conv_dft.fused_conv_chain(planes.double(), *spectra, nk,
+                                  precision="high")
+
+
+def test_night_at_conv_high_runs_only_the_tensor_core_k2(dev):
+    from muse_psfr_tpu_torch.parallel.batch import process_batch
+    cfg = TINY_CONFIG.with_(use_fft=False)
+    args = ([1.0, 0.8, 1.3], [0.7, 0.5, 0.4], [25.0, 14.0, 2.0],
+            np.ones((3, 4)), [750.0, 900.0])
+    top = process_batch(*args, cfg=cfg, chunk=2, device="cuda")
+    _build.reset_launch_counts()
+    fit, psf_mean, _ = process_batch(
+        *args, cfg=cfg.with_(conv_precision="high"), chunk=2, device="cuda")
+    counts = _build.launch_counts()
+    assert counts["conv_dft_tc"] > 0 and counts["conv_dft"] == 0
+    assert np.abs(psf_mean - top[1]).max() <= 2e-5 * np.abs(top[1]).max()
+    assert np.all(fit[..., -1] == 1.0)
+    with pytest.raises(ValueError, match="conv precision"):
+        process_batch(*args, cfg=cfg.with_(conv_precision="default"),
+                      chunk=2, device="cuda")
+    # the plain route takes all three tiers
+    plain = cfg.with_(use_fused_conv=False)
+    for tier in ("high", "default"):
+        _build.reset_launch_counts()
+        got = process_batch(*args, cfg=plain.with_(conv_precision=tier),
+                            chunk=2, device="cuda")
+        assert _build.launch_counts()["conv_dft_tc"] == 0
+        assert np.isfinite(got[1]).all()
+
+
+@pytest.mark.parametrize("tier,limit", [("high", 5e-5), ("default", 0.1)])
+def test_night_at_a_lower_matmul_tier(dev, tier, limit):
+    from muse_psfr_tpu_torch.parallel.batch import process_batch
+    cfg = TINY_CONFIG.with_(use_fft=False)
+    args = ([1.0, 0.8, 1.3], [0.7, 0.5, 0.4], [25.0, 14.0, 2.0],
+            np.ones((3, 4)), [750.0, 900.0])
+    top = process_batch(*args, cfg=cfg, chunk=2, device="cuda")
+    got = process_batch(*args, cfg=cfg.with_(matmul_precision=tier), chunk=2,
+                        device="cuda")
+    rel = np.abs(got[1] - top[1]).max() / np.abs(top[1]).max()
+    assert 0 < rel <= limit
+
+
+def test_matmul_tier_on_the_card(dev):
+    g = torch.Generator(device="cpu").manual_seed(2)
+    a = torch.randn((3, 48, 200), generator=g)
+    b = torch.randn((200, 56), generator=g)
+    scale = a.double().abs() @ b.double().abs()
+    for tier, bound in (("highest", 2.0 ** -20), ("high", 2.0 ** -15),
+                        ("default", 2.0 ** -7)):
+        got = zoom_dft.matmul_tier(a.to(dev), b.to(dev), tier)
+        assert got.dtype == torch.float32
+        err = (got.cpu().double() - a.double() @ b.double()).abs()
+        assert (err <= bound * scale).all()
+
+
+def test_compat_on_the_card_matches_the_cpu(dev):
+    """The float64 shim launches no kernel and agrees with its CPU run to
+    <= 1e-10 relative."""
+    import muse_psfr_tpu_torch.compat as compat
+    lb = np.array([500.0, 700.0, 900.0])
+    _build.reset_launch_counts()
+    out = {}
+    for device in ("cuda", "cpu"):
+        psd = compat.simul_psd_wfm([0.7, 0.3], (100, 10000), 1.0, 25.0,
+                                   dim=320, npsflin=2, verbose=False,
+                                   device=device)
+        cube = compat.psf_muse(psd, lb, device=device)
+        final = compat.convolve_final_psf(lb, 1.0, 0.7, 25.0, cube,
+                                          device=device)
+        tbl = compat.fit_psf_cube(lb, final, device=device)
+        out[device] = (psd, cube, final, np.asarray(tbl["fwhm"], float),
+                       np.asarray(tbl["n"], float))
+    assert set(_build.launch_counts().values()) == {0}
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert got.dtype == np.float64
+        assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()

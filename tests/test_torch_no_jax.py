@@ -26,8 +26,9 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 from muse_psfr_tpu_torch.ops import _build
 assert _build._LIB is None, "a kernel was built at import"
 bad = sorted(k for k in sys.modules
-             if k in ("jax", "muse_psfr_tpu")
-             or k.startswith(("jax.", "jaxlib", "muse_psfr_tpu.")))
+             if k in ("jax", "muse_psfr_tpu", "muse_psfr")
+             or k.startswith(("jax.", "jaxlib", "muse_psfr_tpu.",
+                              "muse_psfr.")))
 print("IMPORTED", len([k for k in sys.modules if k.startswith(pkg.__name__)]))
 print("BAD", bad)
 """
@@ -54,7 +55,8 @@ def test_cpu_tensors_take_the_plain_path_without_launching():
     assert set(before) == {"zoom_dft", "zoom_dft_rowsplit", "zoom_dft_disc",
                            "zoom_dft_tc", "zoom_dft_tc_rowsplit",
                            "zoom_dft_tc_disc", "zoom_dft_anchor",
-                           "zoom_dft_tc_anchor", "conv_dft"}
+                           "zoom_dft_tc_anchor", "conv_dft",
+                           "conv_dft_tc"}
     assert before["zoom_dft"] == zoom_dft.LAUNCHES
     assert before["zoom_dft_rowsplit"] == zoom_dft.ROWSPLIT_LAUNCHES
     assert before["zoom_dft_disc"] == zoom_dft.DISC_LAUNCHES
@@ -64,6 +66,7 @@ def test_cpu_tensors_take_the_plain_path_without_launching():
     assert before["zoom_dft_anchor"] == zoom_dft.ANCHOR_LAUNCHES
     assert before["zoom_dft_tc_anchor"] == zoom_dft.TC_ANCHOR_LAUNCHES
     assert before["conv_dft"] == conv_dft.LAUNCHES
+    assert before["conv_dft_tc"] == conv_dft.TC_LAUNCHES
 
 
 @pytest.mark.parametrize("cfg_kw", [{"zoom_anchor": "on"},
@@ -78,6 +81,62 @@ def test_cpu_anchor_and_disc_nights_launch_nothing(cfg_kw):
         device="cpu")
     assert np.all(np.isfinite(fit)) and np.all(np.isfinite(psf_mean))
     assert _build.launch_counts() == before
+
+
+@pytest.mark.parametrize("cfg_kw", [{"conv_precision": "high"},
+                                    {"matmul_precision": "high"},
+                                    {"matmul_precision": "default",
+                                     "conv_precision": "high"}])
+def test_cpu_nights_at_a_lower_tier_launch_nothing(cfg_kw):
+    """The tier fields are read where the card runs: a CPU night launches
+    nothing and equals the night at "highest" bit for bit."""
+    before = _build.launch_counts()
+    night = dict(lbda=[800.0, 900.0], chunk=1, device="cpu")
+    tel = ([1.0], [0.7], [25.0], np.ones((1, 4)))
+    cfg = TINY_CONFIG.with_(use_fft=False)
+    got = batch.process_batch(*tel, cfg=cfg.with_(**cfg_kw), **night)
+    want = batch.process_batch(*tel, cfg=cfg, **night)
+    assert _build.launch_counts() == before
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+
+
+def _port_sources():
+    pkg = os.path.join(ROOT, "muse_psfr_tpu_torch")
+    found = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, files in os.walk(pkg):
+        found += [os.path.join(base, f) for f in files if f.endswith(".py")]
+    return sorted(found)
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_source_names_no_jax_import(path):
+    """No module of the port, ``compat.py`` and ``chip_smoke.py`` included,
+    has an import statement of ``jax``, of the JAX package or of the
+    ``muse_psfr`` shim that is backed by it."""
+    import ast
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    bad = []
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        bad += [n for n in names
+                if n.split(".")[0] in ("jax", "jaxlib", "muse_psfr_tpu",
+                                       "muse_psfr")]
+    assert not bad, bad
+
+
+def test_the_scan_covers_compat_and_the_new_modules():
+    rel = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    assert {"chip_smoke.py", "muse_psfr_tpu_torch/compat.py",
+            "muse_psfr_tpu_torch/ops/conv_dft.py",
+            "muse_psfr_tpu_torch/psd/model.py",
+            "muse_psfr_tpu_torch/core/grids.py"} <= rel
 
 
 def test_cuda_request_without_cuda_raises():
@@ -125,13 +184,14 @@ def test_reset_launch_counts():
     zoom_dft.DISC_LAUNCHES, zoom_dft.ANCHOR_LAUNCHES = 6, 7
     zoom_dft.TC_LAUNCHES, zoom_dft.TC_ROWSPLIT_LAUNCHES = 8, 9
     zoom_dft.TC_DISC_LAUNCHES, zoom_dft.TC_ANCHOR_LAUNCHES = 10, 11
+    conv_dft.TC_LAUNCHES = 12
     assert _build.launch_counts() == {"zoom_dft": 3, "zoom_dft_rowsplit": 5,
                                       "zoom_dft_disc": 6, "zoom_dft_tc": 8,
                                       "zoom_dft_tc_rowsplit": 9,
                                       "zoom_dft_tc_disc": 10,
                                       "zoom_dft_anchor": 7,
                                       "zoom_dft_tc_anchor": 11,
-                                      "conv_dft": 4}
+                                      "conv_dft": 4, "conv_dft_tc": 12}
     _build.reset_launch_counts()
     assert set(_build.launch_counts().values()) == {0}
-    assert len(_build.launch_counts()) == 9
+    assert len(_build.launch_counts()) == 10

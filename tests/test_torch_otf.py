@@ -1,7 +1,9 @@
 """otf/psf.py of the PyTorch port against the JAX package: host tables, the
 structure function (split and exact, FFT and DFT-matmul, with and without
 the symmetry fold), the npixc .5 rounding quirk, and the fused chunk step
-against the JAX XLA ``one_lambda`` path (float64, <= 1e-10 x max|ref|)."""
+against the JAX XLA ``one_lambda`` path (float64, <= 1e-10 x max|ref|);
+the standalone ``psd_to_psf`` and the one-row ``psf_cube`` against the JAX
+functions."""
 
 import numpy as np
 import pytest
@@ -192,3 +194,110 @@ def test_unported_and_invalid_options_raise():
     with pytest.raises(ValueError):
         tpsf.psf_cube_from_base(base, LB, tc.with_(use_fft=False,
                                                    use_zoom_dft=False))
+
+
+def _vk_psd(dim=256, npup=64, D=8.0):
+    L = D * dim / npup
+    c = (dim - 1) / 2.0
+    fx = (np.arange(dim) - c)[:, None] / L
+    psd = 0.0229 * 0.15 ** (-5 / 3) * (np.hypot(fx, fx.T) ** 2
+                                       + 1 / 625) ** (-11 / 6)
+    from muse_psfr_tpu_torch.core.grids import pupil_mask
+    return (psd * (500.0 / (2 * np.pi)) ** 2,
+            pupil_mask(npup / 2, npup, 0.14, dtype=torch.float64).numpy())
+
+
+@pytest.mark.parametrize("samp", [None, 2, 1.5, 1.0])
+@pytest.mark.parametrize("dtype,tol", [("float64", 1e-10),
+                                       ("float32", 2e-5)])
+def test_psd_to_psf_matches_jax(samp, dtype, tol):
+    """The standalone forward model: Nyquist and the sub-Nyquist crop,
+    ``return_all``, in float64 (<= 1e-10 x max) and float32 (two FFT
+    libraries in single precision: <= 2e-5 x max)."""
+    psd, pup = _vk_psd()
+    got = tpsf.psd_to_psf(psd, pup, 8.0, 600e-9, samp=samp, return_all=True,
+                          dtype=getattr(torch, dtype), device="cpu")
+    want = jpsf.psd_to_psf(psd, pup, 8.0, 600e-9, samp=samp,
+                           return_all=True, dtype=getattr(jnp, dtype))
+    assert torch.is_tensor(got[0]) and got[0].dtype == getattr(torch, dtype)
+    _close(got[0].double().numpy(), np.asarray(want[0], np.float64), tol)
+    assert float(got[1]) == float(want[1])
+    assert abs(got[2] - want[2]) <= 1e-12 * abs(want[2])
+    assert abs(float(got[0].sum()) - 1.0) <= 1e-5
+
+
+def test_psd_to_psf_static_phase_and_rejected_branches():
+    psd, pup = _vk_psd()
+    phase = 30.0 * np.random.default_rng(8).standard_normal(pup.shape)
+    got = tpsf.psd_to_psf(psd, pup, 8.0, 700e-9, samp=2, phase_static=phase,
+                          device="cpu").numpy()
+    want = np.asarray(jpsf.psd_to_psf(psd, pup, 8.0, 700e-9, samp=2,
+                                      phase_static=phase))
+    # the pupil angle reaches ~1e9 rad; one rounding of it moves the PSF
+    # by ~1e-8 of its peak
+    _close(got, want, 1e-6)
+    for kw in (dict(samp=5), dict(samp=2, FoV=99.0)):
+        with pytest.raises(NotImplementedError):
+            tpsf.psd_to_psf(psd, pup, 8.0, 600e-9, device="cpu", **kw)
+    # a FoV equal to the grid's own is the live branch
+    fov = tpsf.psd_to_psf(psd, pup, 8.0, 600e-9, return_all=True,
+                          device="cpu")[2]
+    tpsf.psd_to_psf(psd, pup, 8.0, 600e-9, FoV=fov, device="cpu")
+
+
+@pytest.mark.parametrize("kw", [{}, {"use_fft": False},
+                                {"use_fused_zoom": False}])
+@pytest.mark.parametrize("ndim", [2, 3])
+def test_psf_cube_matches_jax(kw, ndim):
+    """The one-row entry point: a (dim, dim) PSD or a (ndir, dim, dim)
+    cube, arrays or tensors, float64."""
+    jkw = {k: v for k, v in kw.items() if k != "use_fused_zoom"}
+    tc, jc = TTINY.with_(dtype="float64", **kw), \
+        JTINY.with_(dtype="float64", **jkw)
+    psd = tpsd.simulate_psd(_t(SEEING[:1]), _t(GL[:1]), _t(L0[:1]),
+                            _t(MASK[:1]), H, 12.0, 2, tc)[0]
+    psd = psd[0] if ndim == 2 else psd
+    got = tpsf.psf_cube(psd.numpy(), LB, tc, device="cpu")
+    want = jpsf.psf_cube(jnp.asarray(psd.numpy()), jnp.asarray(LB), jc)
+    assert torch.is_tensor(got) and got.dtype == torch.float64
+    _close(got.numpy(), want)
+    again = tpsf.psf_cube(psd, _t(LB), tc, device="cpu")
+    assert torch.equal(again, got)
+
+
+def test_psf_cube_decides_npixc_in_host_float64():
+    """The .5-plane trap: plane 19 of linspace(500, 900, 37) must crop at
+    872 whatever ``cfg.dtype`` is (a float32 quotient gives 874)."""
+    seen = {}
+    real = tpsf.psf_cube_from_base
+
+    def spy(base, lb, cfg, npixc=None):
+        seen["npixc"] = np.asarray(npixc)
+        seen["lb"] = np.asarray(lb)
+        raise RuntimeError("stop")
+
+    lb = np.linspace(500, 900, 37)
+    cfg = TConfig(use_fft=True)
+    tpsf.psf_cube_from_base = spy
+    try:
+        with pytest.raises(RuntimeError, match="stop"):
+            tpsf.psf_cube(np.ones((256, 256), np.float32),
+                          torch.as_tensor(lb, dtype=torch.float64),
+                          TTINY, device="cpu")
+    finally:
+        tpsf.psf_cube_from_base = real
+    assert seen["lb"].dtype == np.float64
+    assert np.array_equal(seen["npixc"], tpsf.lambda_crop_size(lb, TTINY))
+    assert tpsf.lambda_crop_size(lb, cfg)[19] == 872
+
+
+def test_new_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    psd, pup = _vk_psd(64, 16)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tpsf.psd_to_psf(psd, pup, 8.0, 600e-9)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tpsf.psf_cube(np.ones((256, 256)), LB, TTINY)
+    import muse_psfr_tpu_torch as pkg
+    assert pkg.psf_cube is tpsf.psf_cube and "psf_cube" in pkg.__all__

@@ -1,6 +1,10 @@
 """psd/model.py of the PyTorch port against the JAX package: the split PSD
 (w, delta) and the exact full-grid PSD, LSE and MAP laws, 4- and 3-laser
-rows, in float64 on the same numpy telemetry (<= 1e-10 x max|ref|)."""
+rows, in float64 on the same numpy telemetry (<= 1e-10 x max|ref|); and
+the reference's general building blocks (``wfs_transfer``,
+``glao_reconstructor``, ``residual_psd_one_dir``, ``residual_variance``,
+``gs_phasors``) against the JAX functions on an 80 x 80 grid in
+float64/complex128 (<= 1e-10 x max|ref|)."""
 
 import numpy as np
 import pytest
@@ -85,3 +89,95 @@ def test_quirks_wind_speed_and_r0():
                        np.asarray(jpsd.seeing_to_r0(jnp.asarray(s), 0.5,
                                                     30.0)),
                        rtol=1e-14, atol=0)
+
+
+def _grid64(s=80, step=8 / 40):
+    from muse_psfr_tpu.core.grids import fft_freq_polar as jgrid
+    from muse_psfr_tpu_torch.core.grids import fft_freq_polar as tgrid
+    return tgrid(s, step, torch.float64), jgrid(s, step, jnp.float64)
+
+
+POS = np.array([[1, 1], [-1, -1], [-1, 1], [1, -1]], float).T * 63 / 60
+
+
+@pytest.mark.parametrize("strict", [True, False])
+@pytest.mark.parametrize("pitch", [8 / 24, [8 / 24, 8 / 24, 8 / 32, 8 / 16]])
+def test_wfs_transfer(strict, pitch):
+    """Both masks ('>' and '>=': the cutoff lands on grid frequencies, so
+    they differ) and the un-parenthesised ``&``/``|`` precedence quirk,
+    scalar and per-WFS pitches."""
+    tg, jg = _grid64()
+    got = tpsd.wfs_transfer(*tg, pitch, strict, torch.complex128)
+    want = jpsd.wfs_transfer(*jg, jnp.asarray(pitch), strict, jnp.complex128)
+    assert got.dtype == torch.complex128
+    _close(got.numpy(), want, 1e-13)
+    assert np.array_equal(got.numpy() == 0, np.asarray(want) == 0)
+    other = tpsd.wfs_transfer(*tg, pitch, not strict, torch.complex128)
+    assert (got != other).any()
+    # the quirk: a DC-row frequency past the cutoff in f_y only is zeroed
+    # even where f == |f_y| != 0 and |f_x| is inside
+    assert got.real.abs().max() == 0 and got.imag.abs().max() > 0
+
+
+@pytest.mark.parametrize("lse", [True, False])
+@pytest.mark.parametrize("mask", [[1.0, 1, 1, 1], [1.0, 1, 1, 0]])
+def test_glao_reconstructor(lse, mask):
+    """LSE and the MAP prior, four and three guide stars, DC zeroed."""
+    tg, jg = _grid64()
+    sigr = np.array([1.0, 2.0, 0.5, 1.0])
+    dsp = 0.0229 * 0.15 ** (-5 / 3) * (np.asarray(jg[0]) ** 2
+                                       + 1 / 625) ** (-11 / 6)
+    got = tpsd.glao_reconstructor(
+        *tg, _t(POS), _t(mask), _t(sigr), 8 / 24, 1.0, torch.complex128,
+        dsp_recons=None if lse else _t(dsp))
+    want = jpsd.glao_reconstructor(
+        *jg, jnp.asarray(POS), jnp.asarray(mask), jnp.asarray(sigr), 8 / 24,
+        1.0, jnp.complex128, dsp_recons=None if lse else jnp.asarray(dsp))
+    assert got.shape == (4, 80, 80) and got.dtype == torch.complex128
+    _close(got.numpy(), want)
+    assert (got[:, 0, 0] == 0).all()
+    if mask[3] == 0:
+        assert (got[3] == 0).all()
+
+
+@pytest.mark.parametrize("pitch", [8 / 24, [8 / 24, 8 / 24, 8 / 32, 8 / 16]])
+@pytest.mark.parametrize("h_dm", [1.0, 0.0])
+def test_residual_psd_one_dir_and_variance(pitch, h_dm):
+    tg, jg = _grid64()
+    f = np.asarray(jg[0])
+    layers = 0.0229 * (np.array([0.7, 0.3])[:, None, None] ** (-3 / 5)
+                       * 0.15) ** (-5 / 3) * (f ** 2 + 1 / 625) ** (-11 / 6)
+    wind = np.stack([12.0 * np.cos([0.6, -0.3]), 12.0 * np.sin([0.6, -0.3])])
+    ones, sigv = np.ones(4), np.array([1.0, 2.0, 0.5, 1.0])
+    h, ti, beta = np.array([100.0, 1e4]), np.full(4, 1e-3), \
+        np.array([0.1, -0.2])
+    jW = jpsd.glao_reconstructor(*jg, jnp.asarray(POS), jnp.asarray(ones),
+                                 jnp.asarray(sigv), jnp.asarray(pitch), 1.0,
+                                 jnp.complex128)
+    tW = torch.as_tensor(np.array(jW))
+    got = tpsd.residual_psd_one_dir(
+        *tg, _t(POS), _t(ones), _t(beta), _t(sigv), _t(layers), _t(h), h_dm,
+        tW, 2.5e-3, _t(ti), _t(wind), pitch, torch.complex128)
+    want = jpsd.residual_psd_one_dir(
+        *jg, jnp.asarray(POS), jnp.asarray(ones), jnp.asarray(beta),
+        jnp.asarray(sigv), jnp.asarray(layers), jnp.asarray(h), h_dm, jW,
+        2.5e-3, jnp.asarray(ti), jnp.asarray(wind), jnp.asarray(pitch),
+        jnp.complex128)
+    assert got.dtype == torch.float64 and got.shape == (80, 80)
+    _close(got.numpy(), want)
+    assert got[0, 0] == 0
+    v = tpsd.residual_variance(got, 1.0 / 16, 8.0)
+    jv = jpsd.residual_variance(want, 1.0 / 16, 8.0)
+    assert abs(float(v) - float(jv)) <= 1e-12 * abs(float(jv))
+    # batched over leading dimensions, as the JAX function is
+    both = tpsd.residual_variance(torch.stack([got, 2 * got]), 1.0 / 16, 8.0)
+    assert both.shape == (2,) and abs(float(both[1]) - 2 * float(v)) \
+        <= 1e-12 * float(v)
+
+
+def test_gs_phasors():
+    tg, jg = _grid64(16)
+    got = tpsd.gs_phasors(tg[1], tg[2], _t(POS))
+    want = jpsd.gs_phasors(jg[1], jg[2], jnp.asarray(POS), jnp.complex128)
+    assert got.shape == (4, 16, 16)
+    _close(got.numpy(), want, 1e-14)

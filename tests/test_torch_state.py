@@ -124,3 +124,14 @@ def test_config_from_reference_carries_zoom_precision():
     with pytest.raises(ValueError, match="zoom_precision"):
         state.config_from_reference(dataclasses.asdict(
             JConfig(zoom_precision="default")))
+
+
+@pytest.mark.parametrize("field", ["matmul_precision", "conv_precision"])
+@pytest.mark.parametrize("tier", ["default", "high", "highest"])
+def test_config_from_reference_carries_the_precision_tiers(field, tier):
+    """A JAX config's ``matmul_precision``/``conv_precision`` reach the
+    port as they are, so the port computes the same tier."""
+    got = state.config_from_reference(dataclasses.asdict(
+        JConfig(**{field: tier})))
+    assert getattr(got, field) == tier
+    assert got == GalacsiConfig(**{field: tier})
