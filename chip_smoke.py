@@ -141,14 +141,31 @@ Phases (any failure raises, so the exit code is non-zero):
     ``psd_to_psf`` and ``dsp4muse`` (9 directions) likewise; no kernel is
     launched; wall time of each on the card (first call and again) and on
     the CPU;
-21. one JSON line of per-kernel results, each with its launches on the
+21. the 1-direction FFT-free night (100 rows x 35 wavelengths, chunk 50,
+    K1 "high") under meshes (``parallel/mesh.py``), each against the same
+    night on one device (mean PSF <= 1e-6 and packed fits <= 1e-4
+    absolute, the JAX package's mesh limits, but FWHM and beta <= 1e-3
+    relative, as in 8-11, since the LM fit turns a batch size's float32
+    noise into ~4e-4 on beta) with K1 and K2 launched on
+    every shard: ``default_mesh()`` (every card, one shard each); two
+    shards on ``cuda:0`` (``default_mesh(["cuda:0", "cuda:0"])``), also
+    at the default config (K2 not launched) and for the 9-direction night
+    of 9 (chunk 44: shards of 22 rows), the golden row (rms <=
+    1e-5) and the forced redo of 12 over the mesh; walls of the
+    single-device and the two-shard night in turns; a one-rank NCCL
+    group (``init_multihost``: its gather runs once per chunk); two
+    ranks on the one card through gloo (NCCL refuses two ranks on a
+    device), ``python -m muse_psfr_tpu_torch.parallel.multihost_demo``,
+    ranks equal bit for bit, launches per rank, warmed walls;
+22. one JSON line of per-kernel results, each with its launches on the
     path that runs it (the FFT-free default nights for the three-pass
     launches and K2, the "highest" nights for the six-pass launches, the
     switch nights for K5 and K6, each at its night's precision, the
     ``conv_precision="high"`` night for K2's tensor-core body; every one
     must be > 0; ``user_layer_launches`` on K1 and K3 "high" and on both
     K2 bodies gives their counts on the paths of phases 13-16, K2's all
-    0) and its
+    0; ``mesh_launches`` on K1 "high" and K2 their counts on the mesh
+    nights of phase 21, per rank for the two ranks) and its
     bound (the larger of its bytes
     over 3.35 TB/s and its operations, each over its unit's peak: fp32
     FLOPs over 67 TFLOP/s, bf16 tensor-core FLOPs (three or six passes)
@@ -167,6 +184,7 @@ Imports nothing of JAX.
 import json
 import logging
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -1097,18 +1115,19 @@ def anchor_night(cfg, rows, card, guard_log, exact, warm=5, golden=True):
     return counts
 
 
-def forced_redo(cfg, guard_log):
-    """A pinned too-small window must trip the guard and be redone."""
+def forced_redo(cfg, guard_log, mesh=None, label=""):
+    """A pinned too-small window must trip the guard and be redone (under
+    ``mesh``: the redo too)."""
     from muse_psfr_tpu_torch.parallel.batch import reconstruct_batch
     tel = ([0.2], [0.01], [30.0], np.ones((1, 4)))
     guard_log.trips.clear()
     got = reconstruct_batch(*tel, [930.0], cfg=cfg.with_(otf_support=128),
-                            chunk=1, device="cuda")
+                            chunk=1, device="cuda", mesh=mesh)
     trips = list(guard_log.trips)
     full = reconstruct_batch(*tel, [930.0], cfg=cfg, chunk=1, device="cuda",
                              _force_full=True)
     err = float(np.abs(got - full).max())
-    print(f"forced redo (0.2, 0.01, 30) at 930 nm, otf_support=128: "
+    print(f"forced redo{label} (0.2, 0.01, 30) at 930 nm, otf_support=128: "
           f"{trips}; max abs vs the full window {err:.3e} (limit 2e-6)")
     if not trips:
         raise RuntimeError("the pinned too-small window did not trip")
@@ -1116,12 +1135,12 @@ def forced_redo(cfg, guard_log):
         raise RuntimeError(f"the redone cube is off by {err}")
 
 
-def golden_rms(cfg, rows, label):
-    """The pinned row through ``reconstruct_batch`` at ``cfg`` against the
-    float64 oracle cube."""
+def golden_rms(cfg, rows, label, mesh=None):
+    """The pinned row through ``reconstruct_batch`` at ``cfg`` (over
+    ``mesh``) against the float64 oracle cube."""
     from muse_psfr_tpu_torch.parallel.batch import reconstruct_batch
     cube = reconstruct_batch(*(a[:1] for a in rows), lbda=LBDA, cfg=cfg,
-                             chunk=1, device="cuda")[0]
+                             chunk=1, device="cuda", mesh=mesh)[0]
     rms = float(np.sqrt(np.mean((cube.astype(np.float64)
                                  - np.load(GOLDEN)) ** 2)))
     print(f"golden row (1.0, 0.7, 25), {label}: rms {rms:.3e} vs the "
@@ -1719,6 +1738,177 @@ def sweep_path(cfg, card, guard_log, tmp):
     return counts
 
 
+def mesh_launches(counts, shards, label, fft_free=True):
+    """K1 "high" (and K2 on an FFT-free night) launched on every shard:
+    ``counts`` is this process's count over ``shards`` shards."""
+    keys = ["zoom_dft_tc"] + (["conv_dft"] if fft_free else [])
+    per = {k: counts[k] / shards for k in keys}
+    print(f"{label}: launches {counts}; per shard "
+          + ", ".join(f"{k} {v:g}" for k, v in per.items()))
+    if any(counts[k] < shards for k in keys):
+        raise RuntimeError(f"{label}: a shard launched no {keys}: {counts}")
+    no_disc_or_anchor(counts, label)
+    only_its_precision(counts, "high", label)
+    if not fft_free and counts["conv_dft"] + counts["conv_dft_tc"]:
+        raise RuntimeError(f"{label}: K2 ran on the cuFFT route: {counts}")
+    return per
+
+
+def same_night(label, got, want, card):
+    """A mesh night against the same night on one device: the mean PSF
+    <= 1e-6 absolute and every packed fit field <= 1e-4 absolute (the JAX
+    package's mesh limits, tests/test_parallel.py:124-126), but FWHM and
+    beta, held to 1e-3 relative, the per-row limit of section 2 for
+    nights whose rows run in batches of other sizes: a batch size alone
+    moves a row's float32 PSF by ~1e-7, and the LM fit turns that into up
+    to ~4e-4 on beta (PERF.md section 6)."""
+    from muse_psfr_tpu_torch.fit.moffat_fit import PACKED_FIELDS
+    check_fits(got[0], len(want[0]), got[1], got[2])
+    shape = [PACKED_FIELDS.index(k) for k in ("fwhm", "n")]
+    diff = np.abs(got[0] - want[0])
+    dshape = float((diff[..., shape] / np.abs(want[0][..., shape])).max())
+    dfit = float(np.delete(diff, shape, axis=-1).max())
+    dmean = float(np.abs(got[1] - want[1]).max())
+    rel = dmean / float(np.abs(want[1]).max())
+    moved = int(np.any(diff > 0, axis=(1, 2)).sum())
+    print(f"{label} vs the single-device night: {moved} of {len(diff)} rows "
+          f"not bit-equal; FWHM/beta {dshape:.3e} relative (limit 1e-3), "
+          f"other fit fields {dfit:.3e} abs (limit 1e-4), mean PSF "
+          f"{dmean:.3e} abs (limit 1e-6), {rel:.3e} relative; per field "
+          f"{' '.join(f'{v:.2e}' for v in diff.max(axis=(0, 1)))} ({card})")
+    if not (dshape <= 1e-3 and dfit <= 1e-4 and dmean <= 1e-6):
+        raise RuntimeError(f"{label} departs from the single-device night")
+    return dict(rows_moved=moved, fwhm_beta_rel=dshape, fit_abs=dfit,
+                mean_abs=dmean, mean_rel=rel)
+
+
+def mesh_phase(torch, cfg, user_cfg, rows, card, guard_log, night9):
+    """The 1-direction night under meshes (phase 21): ``default_mesh()``,
+    two shards on one card (FFT-free and default config, the 9-direction
+    night ``night9``, golden row, forced redo), a one-rank NCCL group, and
+    two processes on the card
+    through gloo (``parallel/multihost_demo.py``); each against the
+    single-device night, with launches per shard and walls in turns."""
+    import torch.distributed as dist
+    from muse_psfr_tpu_torch.ops import _build
+    from muse_psfr_tpu_torch.parallel.batch import process_batch
+    from muse_psfr_tpu_torch.parallel.mesh import default_mesh, init_multihost
+    night = dict(lbda=LBDA, npsflin=1, cfg=cfg, chunk=50, device="cuda")
+    out = {}
+
+    def counted(**kw):
+        _build.reset_launch_counts()
+        got = process_batch(*rows, **dict(night, **kw))
+        return got, _build.launch_counts()
+
+    want = process_batch(*rows, **night)
+    one = default_mesh()
+    if one.size != torch.cuda.device_count():
+        raise RuntimeError(f"default_mesh() covers {one.devices}")
+    got, counts = counted(mesh=one)
+    mesh_launches(counts, one.size,
+                  f"default_mesh() over {[str(d) for d in one.devices]}")
+    out["default_mesh"] = dict(launches=counts, **same_night(
+        "default_mesh()", got, want, card))
+
+    two = default_mesh(["cuda:0", "cuda:0"])
+    got, counts2 = counted(mesh=two)
+    mesh_launches(counts2, 2, "two shards on cuda:0")
+    if counts2["zoom_dft_tc"] != 2 * counts["zoom_dft_tc"]:
+        raise RuntimeError(f"two shards launched K1 {counts2} against "
+                           f"{counts} on one")
+    out["two_shards"] = dict(launches=counts2, **same_night(
+        "two shards on cuda:0", got, want, card))
+    want_d = process_batch(*rows, **dict(night, cfg=user_cfg))
+    got, counts_d = counted(cfg=user_cfg, mesh=two)
+    mesh_launches(counts_d, 2, "two shards, default config", fft_free=False)
+    out["two_shards_default"] = dict(launches=counts_d, **same_night(
+        "two shards, default config", got, want_d, card))
+    want9 = process_batch(*rows, **night9)
+    _build.reset_launch_counts()
+    got = process_batch(*rows, **night9, mesh=two)
+    counts9 = _build.launch_counts()
+    mesh_launches(counts9, 2, "9-direction night, two shards")
+    out["two_shards_ndir9"] = dict(launches=counts9, **same_night(
+        "9-direction night, two shards", got, want9, card))
+    golden_rms(cfg, rows, "two shards on cuda:0", mesh=two)
+    forced_redo(cfg, guard_log, mesh=two, label=" over two shards")
+
+    walls = {"single": [], "two shards": []}
+    for name in ("single", "two shards", "two shards", "single") * 2:
+        t0 = time.perf_counter()
+        process_batch(*rows, **night, mesh=two if name != "single" else None)
+        walls[name].append(time.perf_counter() - t0)
+    for name, w in walls.items():
+        print(f"1-direction night, {name}, in turns x{len(w)}: wall "
+              f"{' '.join(f'{t:.4f}' for t in w)} s; median "
+              f"{np.median(w):.4f} s ({card})")
+    out["walls_s"] = {k: [float(t) for t in w] for k, w in walls.items()}
+
+    # one rank of NCCL: its gather runs once per chunk
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    group = init_multihost(f"localhost:{port}", 1, 0)
+    gathers = [0]
+    all_gather = dist.all_gather
+
+    def counted_gather(*a, **k):
+        gathers[0] += 1
+        return all_gather(*a, **k)
+
+    dist.all_gather = counted_gather
+    try:
+        got, counts_n = counted(mesh=default_mesh())
+    finally:
+        dist.all_gather = all_gather
+        backend = dist.get_backend()
+        dist.destroy_process_group()
+    mesh_launches(counts_n, group.size, f"one-rank {backend} group")
+    print(f"one-rank {backend} group: {gathers[0]} gathers")
+    if backend != "nccl" or gathers[0] < 1:
+        raise RuntimeError(f"no NCCL gather ran ({backend}, {gathers[0]})")
+    out["nccl_one_rank"] = dict(launches=counts_n, gathers=gathers[0],
+                                **same_night("one-rank NCCL group", got,
+                                             want, card))
+
+    # two processes on the one card: NCCL refuses two ranks on a device
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m",
+               "muse_psfr_tpu_torch.parallel.multihost_demo", "--device",
+               "cuda", "--backend", "gloo", "--nproc", "2", "--rows",
+               str(len(rows[0])), "--repeat", "4", "--out", tmp]
+        print("two ranks on cuda:0, backend gloo (NCCL refuses two ranks "
+              "on one card): " + " ".join(cmd[1:]))
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=600)
+        for line in (run.stdout + run.stderr).splitlines():
+            print("  demo:", line)
+        if run.returncode:
+            raise RuntimeError(f"the two-rank demo failed ({run.returncode})")
+        demo = dict(np.load(os.path.join(tmp, "multihost_demo.npz")))
+    print(f"two ranks: {time.perf_counter() - t0:.1f} s including start-up")
+    if not all(np.array_equal(demo[k], r) for k, r in
+               zip(("seeing", "GL", "L0", "gs_mask"), rows)):
+        raise RuntimeError("the demo ran other telemetry than the night")
+    counts_r = json.loads(str(demo["counts"]))
+    for r, c in enumerate(counts_r):
+        mesh_launches(c, 1, f"two ranks, rank {r}")
+    pair = demo["walls"].max(axis=0)
+    print(f"1-direction night, two ranks on cuda:0 (gloo), warmed x"
+          f"{pair.size}: wall {' '.join(f'{t:.4f}' for t in pair)} s; "
+          f"median {np.median(pair):.4f} s against the single-device "
+          f"median {np.median(walls['single']):.4f} s ({card})")
+    out["two_ranks"] = dict(launches=counts_r,
+                            walls_s=[float(t) for t in pair], **same_night(
+                                "two ranks (rank 0, equal bit for bit to "
+                                "rank 1)", (demo["fit"], demo["mean"],
+                                            demo["fitm"]), want, card))
+    return out
+
+
 def profile_night(torch, rows, night, path):
     """torch.profiler table of one warmed night, printed and written to
     ``path``."""
@@ -1870,6 +2060,7 @@ def main(argv):
         user["sweep"] = sweep_path(user_cfg, card, guard_log, tmp)
     matmul_tier_nights(cfg, user_cfg, rows, card, night)
     compat_path(card)
+    mesh = mesh_phase(torch, cfg, user_cfg, rows, card, guard_log, night9)
     k1["launches"] = counts_top["zoom_dft"]
     k1_9["launches"] = counts9_top["zoom_dft"]
     k3["launches"] = k3_cli["launches"] = cli_top["zoom_dft_rowsplit"]
@@ -1887,6 +2078,11 @@ def main(argv):
     for rec, key in ((t1, "zoom_dft_tc"), (t3_cli, "zoom_dft_tc_rowsplit"),
                      (k2, "conv_dft"), (k2h, "conv_dft_tc")):
         rec["user_layer_launches"] = {p: c[key] for p, c in user.items()}
+    for rec, key in ((t1, "zoom_dft_tc"), (k2, "conv_dft")):
+        rec["mesh_launches"] = {
+            p: ([c[key] for c in m["launches"]] if p == "two_ranks"
+                else m["launches"][key])
+            for p, m in mesh.items() if p != "walls_s"}
     kernels = [k1, k1_9, k3, k3_cli, k2, k5, k6, t1, t1_9, t3, t3_cli, t5,
                t6, k2h]
     idle = [k["name"] for k in kernels if k["launches"] < 1]

@@ -8,7 +8,9 @@ fit, with the TPU kernels written by hand in CUDA for Hopper
 around them: SPARTA/FITS I/O, ``compute_psf_from_sparta``, the condition
 sweep, the ``muse-psfr-torch`` CLI and the reference's own names
 (``compat.py``).  Entry points take ``device=``
-(default ``"cuda"``) and never fall back to the CPU.  This package
+(default ``"cuda"``) and never fall back to the CPU; the batch entry
+points also take ``mesh=`` (``default_mesh``) to shard rows over several
+devices, in one process or one process each (``torch.distributed``).  This package
 imports no JAX.
 """
 
@@ -40,6 +42,7 @@ from .psd.model import simulate_psd, seeing_to_r0  # noqa: E402
 from .otf.psf import psf_cube, pupil_otf  # noqa: E402
 from .otf.convolve import convolve_final  # noqa: E402
 from .parallel.batch import process_batch, reconstruct_batch  # noqa: E402
+from .parallel.mesh import default_mesh  # noqa: E402
 
 __all__ = [
     "GalacsiConfig", "DEFAULT_CONFIG", "TINY_CONFIG",
@@ -49,6 +52,7 @@ __all__ = [
     "HDUList", "PrimaryHDU", "ImageHDU", "BinTableHDU", "fits_open",
     "FitTable", "plot_psf", "radial_profile",
     "simulate_psd", "seeing_to_r0", "psf_cube", "pupil_otf", "convolve_final",
-    "reconstruct_batch", "process_batch", "condition_sweep", "save_sweep",
+    "reconstruct_batch", "process_batch", "default_mesh", "condition_sweep",
+    "save_sweep",
     "__version__",
 ]

@@ -138,11 +138,13 @@ def compute_psf(lbda, seeing, GL, L0, npsflin=1, h=(100, 10000),
 def condition_sweep(seeing_vals, gl_vals, l0_vals, lbda=None, lmin=490,
                     lmax=930, nl=35, npsflin=1, h=(100, 10000),
                     three_lgs_mode=False, cfg=DEFAULT_CONFIG, chunk=64,
-                    device="cuda", checkpoint=None, resume=False):
+                    device="cuda", checkpoint=None, resume=False,
+                    mesh=None):
     """Sensitivity sweep over a Cartesian (seeing, GL, L0) condition grid.
 
     Reconstructs and Moffat-fits the PSF for every combination of the
-    given 1-D condition arrays, batched on ``device``.  Returns a dict
+    given 1-D condition arrays, batched on ``device`` (or sharded over
+    ``mesh``, see :func:`process_batch`).  Returns a dict
     with the condition grids and ``fwhm``/``beta`` arrays of shape (n_seeing, n_gl, n_l0, n_lbda)
     (FWHM in arcsec), plus the packed raw fit (same leading shape).
 
@@ -297,7 +299,7 @@ def condition_sweep(seeing_vals, gl_vals, l0_vals, lbda=None, lmin=490,
                 ss.ravel()[todo], gg.ravel()[todo], ll.ravel()[todo],
                 gs_mask[todo], lbda, h=h, npsflin=npsflin, cfg=cfg,
                 chunk=chunk, device=device, on_chunk=on_chunk,
-                on_redo_start=on_redo_start, on_final=on_final)
+                on_redo_start=on_redo_start, on_final=on_final, mesh=mesh)
             sub = np.asarray(fit_d)
         if todo.size == B:
             packed = sub
@@ -349,14 +351,16 @@ def compute_psf_from_sparta(filename, extname="SPARTA_ATM_DATA", npsflin=1,
                             lmin=490, lmax=930, nl=35, lbda=None,
                             h=(100, 10000), n_jobs=-1, plot=False,
                             mean_of_lgs=True, verbose=True,
-                            cfg=DEFAULT_CONFIG, chunk=50, device="cuda"):
+                            cfg=DEFAULT_CONFIG, chunk=50, device="cuda",
+                            mesh=None):
     """Reconstruct PSFs for every row of a SPARTA telemetry table.
 
     Same contract as the reference (psfrec.py:981-1120): returns an
     ``HDUList`` [PRIMARY, SPARTA_ATM_DATA (copy), FIT_ROWS, FIT_MEAN,
     PSF_MEAN], or ``None`` if no row has valid telemetry.  ``n_jobs`` is
     accepted for API compatibility and unused; the rows run as one batch
-    on ``device``, ``chunk`` rows at a time.
+    on ``device``, ``chunk`` rows at a time, or sharded over ``mesh``
+    (:func:`process_batch`).
     """
     values, hdul = read_sparta_values(filename, extname)
     out = HDUList([PrimaryHDU(), hdul[extname].copy()])
@@ -423,7 +427,7 @@ def compute_psf_from_sparta(filename, extname="SPARTA_ATM_DATA", npsflin=1,
     # packed fit parameters and the mean PSF cross the device->host link) --
     fit_d, psf_mean, _ = process_batch(
         seeing, GL, L0, gs_mask, lbda, h=h, npsflin=npsflin, cfg=cfg,
-        chunk=chunk, device=device)
+        chunk=chunk, device=device, mesh=mesh)
     fit = unpack_fit(fit_d)
 
     tables = []

@@ -26,13 +26,21 @@ rows of the chunks whose guard is negative are recomputed with the full
 window and the mean PSF is corrected on the device (the surgical redo).
 A pinned ``otf_support`` or ``otf_blue`` is kept as given, guarded and
 redone the same way.
+
+With ``mesh=`` (``parallel/mesh.py``) each chunk's rows are split over the
+mesh's devices: shard ``i`` runs :func:`_fit_chunk` on its slice, on its
+device, and the shards' results are gathered so that every process holds
+the whole chunk (:func:`_replicate_for_host`).  Chunks are then multiples
+of the mesh size and no group takes a tail chunk, as in the JAX package.
 """
 
 import dataclasses
+from functools import reduce
 from itertools import combinations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import GalacsiConfig
 from ..fit.moffat_fit import fit_moffat_cube_packed
@@ -45,6 +53,7 @@ from ..psd.model import (effective_wind_speed, seeing_to_r0, simulate_psd,
                          simulate_psd_split)
 from ..utils.device import resolve_device, torch_dtype
 from ..utils.log import get_logger
+from .mesh import rows_sharding
 
 logger = get_logger("batch")
 
@@ -414,13 +423,16 @@ def _blue_split_plan(groups, seeing, GL, L0, gs_mask, lb_np, h_t,
     return out
 
 
-def clamped_chunk(chunk: int, B: int) -> int:
-    """The chunk size the batch layer dispatches: clamped to the batch."""
-    return max(min(int(chunk), B), 1)
+def clamped_chunk(chunk: int, B: int, mesh=None) -> int:
+    """The chunk size the batch layer dispatches: clamped to the batch, at
+    least the mesh size, rounded up to a multiple of it."""
+    n_dev = 1 if mesh is None else mesh.size
+    c = max(min(int(chunk), B), n_dev)
+    return -(-c // n_dev) * n_dev
 
 
 def _plan_batch(seeing, GL, L0, gs_mask, lbda, h, npsflin, cfg, chunk,
-                force_full=False, device="cuda"):
+                force_full=False, device="cuda", mesh=None):
     """Host planning: validate, decide the crop sizes in float64, bucket
     rows by OTF support, resolve the anchored-Taylor damping per group,
     split off blue sub-windows, and build the telemetry table.
@@ -429,7 +441,8 @@ def _plan_batch(seeing, GL, L0, gs_mask, lbda, h, npsflin, cfg, chunk,
     with ``groups`` a list of ``(group_cfg, row_indices)``.  A pinned
     ``otf_support``/``otf_blue`` is kept; ``force_full`` (the guard redo)
     runs every row on the full window at the caller's chunk.  ``device``
-    is the night's target, which only ``zoom_anchor="auto"`` reads.
+    is the night's target, which only ``zoom_anchor="auto"`` reads;
+    ``mesh`` rounds the chunk to a multiple of its size.
     """
     cfg = cfg or GalacsiConfig()
     wind_speed = effective_wind_speed(h, cfg)
@@ -501,10 +514,10 @@ def _plan_batch(seeing, GL, L0, gs_mask, lbda, h, npsflin, cfg, chunk,
     if not force_full and cfg.otf_support == 0:
         groups = _blue_split_plan(groups, seeing, GL, L0, gs_mask, lb_np,
                                   h_t, wind_speed, npsflin,
-                                  clamped_chunk(chunk, B))
+                                  clamped_chunk(chunk, B, mesh))
     # the redo keeps the caller's chunk (the original night's), padding
     # the redone rows up to it
-    chunk = clamped_chunk(chunk, chunk if force_full else B)
+    chunk = clamped_chunk(chunk, chunk if force_full else B, mesh)
     table = np.concatenate(
         [seeing[:, None], GL[:, None], L0[:, None], gs_mask], axis=1)
     return cfg, groups, chunk, table, lb_np, h_t, wind_speed, npixc
@@ -596,14 +609,17 @@ _PLAN_MEMO_MAX = 8
 def plan_batch(seeing, GL, L0, gs_mask, lbda, h=(100, 10000),
                npsflin: int = 1, cfg: GalacsiConfig = None,
                chunk: int = 8, force_full=False,
-               use_tail: bool = None, device="cuda") -> BatchPlan:
+               use_tail: bool = None, device="cuda",
+               mesh=None) -> BatchPlan:
     """The :class:`BatchPlan` of a batch run: host-only planning
     (:func:`_plan_batch`), then each group's chunk schedule.  The last
     partial chunk of a reduced-window group runs at the smallest covering
-    size of the tail menu; full-window groups always pad to the chunk.
-    ``device`` is the device the night will run on; it decides only how
-    ``zoom_anchor="auto"`` resolves, so a CPU process can plan a card
-    night.  Memoised on the inputs; the plan's arrays are read-only."""
+    size of the tail menu; full-window groups always pad to the chunk, and
+    so does every group under a ``mesh``, whose chunks are multiples of
+    its size.  ``device`` is the device the night will run on; it decides
+    only how ``zoom_anchor="auto"`` resolves, so a CPU process can plan a
+    card night.  Memoised on the inputs; the plan's arrays are
+    read-only."""
     seeing = np.atleast_1d(np.asarray(seeing, np.float64))
     GL = np.atleast_1d(np.asarray(GL, np.float64))
     L0 = np.atleast_1d(np.asarray(L0, np.float64))
@@ -614,17 +630,18 @@ def plan_batch(seeing, GL, L0, gs_mask, lbda, h=(100, 10000),
     memo_key = (seeing.tobytes(), GL.tobytes(), L0.tobytes(),
                 gs_mask.tobytes(), np.asarray(lbda, np.float64).tobytes(),
                 tuple(np.asarray(h, np.float64).ravel()), npsflin, cfg,
-                int(chunk), bool(force_full), bool(use_tail), dev_type)
+                int(chunk), bool(force_full), bool(use_tail), dev_type,
+                None if mesh is None else (mesh.size, mesh.axis_names))
     hit = _PLAN_MEMO.get(memo_key)
     if hit is not None:
         return hit
     (cfg_r, groups, chunk_n, table, lb_np, h_t, wind_speed,
      npixc) = _plan_batch(seeing, GL, L0, gs_mask, lbda, h, npsflin, cfg,
-                          chunk, force_full, dev_type)
+                          chunk, force_full, dev_type, mesh)
     gplans = []
     for gcfg, gidx in groups:
         n_main, rem = divmod(gidx.shape[0], chunk_n)
-        if rem and use_tail and gcfg.otf_support:
+        if rem and use_tail and mesh is None and gcfg.otf_support:
             tail = _tail_size(chunk_n, rem)
         else:
             tail = chunk_n if rem else 0
@@ -659,32 +676,94 @@ def _check_device_dtype(cfg: GalacsiConfig, dev: torch.device):
             "device='cpu'")
 
 
-def _chunks(plan: BatchPlan, dev):
-    """Place the plan on ``dev`` and iterate its chunks.  Returns
-    ``(static, it)``: ``static = (lbda, npixc)`` as device tensors and an
-    iterator of ``(group_cfg, rows, t)`` per chunk, ``t`` the
-    (size, 7) device telemetry (padded with repeats of the group's last
-    row), ``rows`` the input indices of its real rows.  The whole night's
-    padded telemetry goes to the device in one copy."""
-    _check_device_dtype(plan.cfg, dev)
+def _night_device(device, mesh):
+    """The device a night's results land on: ``device`` without a mesh,
+    else the mesh's first local device; a ``device`` of another type than
+    the mesh's is refused."""
+    if mesh is None:
+        return resolve_device(device)
+    dev = resolve_device(mesh.local[0])
+    if torch.device(device).type != dev.type:
+        raise ValueError(f"device={str(device)!r} disagrees with the "
+                         f"mesh's {dev.type} devices; pass "
+                         f"device={dev.type!r} with this mesh")
+    return dev
+
+
+def _chunks(plan: BatchPlan, dev, mesh=None):
+    """Place the plan on the night's devices and iterate its chunks:
+    ``(group_cfg, rows, shards)`` per chunk, ``rows`` the input indices of
+    its real rows and ``shards`` one ``(t, n_valid, lbda, npixc)`` per
+    shard this process runs, ``t`` the shard's (rows, 7) telemetry on its
+    device (the chunk padded with repeats of the group's last row) and
+    ``n_valid`` how many of its rows are real.  Without a mesh the chunk
+    is one shard on ``dev``.  The whole night's padded telemetry goes to
+    each device in one copy."""
     dtype = torch_dtype(plan.cfg.dtype)
-    # (copies: the plan's arrays are read-only)
-    static = (torch.tensor(np.array(plan.lbda), dtype=dtype, device=dev),
-              torch.tensor(np.array(plan.npixc), dtype=torch.int64,
-                           device=dev))
     tabs = [np.concatenate([plan.table[g.rows],
                             np.repeat(plan.table[g.rows[-1:]], g.n_pad,
                                       axis=0)]) for g in plan.groups]
-    night = torch.as_tensor(np.concatenate(tabs), dtype=dtype, device=dev)
+    night_np = np.concatenate(tabs)
+    placed = {}
+    for d in ((dev,) if mesh is None else mesh.local):
+        if d not in placed:
+            _check_device_dtype(plan.cfg, d)
+            # (copies: the plan's arrays are read-only)
+            placed[d] = (torch.as_tensor(night_np, dtype=dtype, device=d),
+                         torch.tensor(np.array(plan.lbda), dtype=dtype,
+                                      device=d),
+                         torch.tensor(np.array(plan.npixc),
+                                      dtype=torch.int64, device=d))
+    base = 0
+    for g in plan.groups:
+        for size, nval, off in zip(g.sizes, g.nvals, g.offs):
+            split = ([(dev, slice(0, size))] if mesh is None else
+                     [(d, sl) for _, d, sl
+                      in rows_sharding(mesh).local_slices(size)])
+            shards = []
+            for d, sl in split:
+                night, lbda, npixc = placed[d]
+                lo = base + off + sl.start
+                shards.append((night[lo:lo + sl.stop - sl.start],
+                               min(max(nval - sl.start, 0),
+                                   sl.stop - sl.start), lbda, npixc))
+            yield g.cfg, g.rows[off:off + nval], shards
+        base += sum(g.sizes)
 
-    def it():
-        base = 0
-        for g in plan.groups:
-            for size, nval, off in zip(g.sizes, g.nvals, g.offs):
-                yield (g.cfg, g.rows[off:off + nval],
-                       night[base + off:base + off + size])
-            base += sum(g.sizes)
-    return static, it()
+
+def _replicate_for_host(mesh, dev, local):
+    """Every shard's results, in shard order, on ``dev`` (this process's
+    first local device), from ``local``: one tuple of tensors per shard
+    this process ran.  Under a process group they are gathered from every
+    rank, so every process holds the whole chunk (the JAX package's
+    all-gather).  The shards' tensors are packed into one row per shard,
+    so a chunk costs one collective."""
+    if mesh is None:
+        return local
+    local = [tuple(x.to(dev) for x in p) for p in local]
+    if mesh.backend is None:
+        return local
+    like = local[0]
+    dt = reduce(torch.promote_types, [x.dtype for x in like])
+    flat = torch.stack([torch.cat([x.reshape(-1).to(dt) for x in p])
+                        for p in local])
+    if mesh.backend == "gloo":
+        # gloo moves tensors through the host: this copy is its transport
+        flat = flat.cpu()
+    blocks = [torch.empty_like(flat) for _ in range(mesh.world)]
+    dist.all_gather(blocks, flat)
+    parts = []
+    for row in torch.cat(blocks).to(dev):
+        p, off = [], 0
+        for x in like:
+            p.append(row[off:off + x.numel()].reshape(x.shape).to(x.dtype))
+            off += x.numel()
+        parts.append(tuple(p))
+    return parts
+
+
+def _cat(xs):
+    return xs[0] if len(xs) == 1 else torch.cat(xs)
 
 
 def _pull(*tensors):
@@ -705,27 +784,33 @@ def _pull(*tensors):
 
 def reconstruct_batch(seeing, GL, L0, gs_mask, lbda, h=(100, 10000),
                       npsflin: int = 1, cfg: GalacsiConfig = None,
-                      chunk: int = 8, device="cuda", _force_full=False):
+                      chunk: int = 8, device="cuda", _force_full=False,
+                      mesh=None):
     """Reconstruct PSF cubes for a batch of work items: (B,)-shaped
     telemetry (``gs_mask`` (B, 4)) -> (B, nl, dimpsf, dimpsf) numpy.  The
     rows of chunks whose window guard trips are recomputed with the full
-    window."""
-    dev = resolve_device(device)
+    window.  With ``mesh`` each chunk's rows are split over its devices
+    (``device`` then only names their type) and every process returns
+    the whole batch."""
+    dev = _night_device(device, mesh)
     seeing = np.atleast_1d(np.asarray(seeing, np.float64))
     GL = np.atleast_1d(np.asarray(GL, np.float64))
     L0 = np.atleast_1d(np.asarray(L0, np.float64))
     gs_mask = np.atleast_2d(np.asarray(gs_mask, np.float64))
     plan = plan_batch(seeing, GL, L0, gs_mask, lbda, h, npsflin, cfg, chunk,
-                      force_full=_force_full, device=dev)
-    (lbda_d, npixc_d), chunks = _chunks(plan, dev)
+                      force_full=_force_full, device=dev, mesh=mesh)
     idxs, cubes, guards = [], [], []
-    for gcfg, rows, t in chunks:
-        psf, guard = reconstruct_rows(
-            t[:, 0], t[:, 1], t[:, 2], t[:, 3:7], lbda_d, plan.h,
-            plan.wind_speed, npsflin, gcfg, npixc=npixc_d)
+    for gcfg, rows, shards in _chunks(plan, dev, mesh):
+        local = []
+        for t, _, lbda_d, npixc_d in shards:
+            psf, guard = reconstruct_rows(
+                t[:, 0], t[:, 1], t[:, 2], t[:, 3:7], lbda_d, plan.h,
+                plan.wind_speed, npsflin, gcfg, npixc=npixc_d)
+            local.append((psf, torch.min(guard)))
+        parts = _replicate_for_host(mesh, dev, local)
         idxs.append(rows)
-        cubes.append(psf[:len(rows)])
-        guards.append(torch.min(guard))
+        cubes.append(_cat([p[0] for p in parts])[:len(rows)])
+        guards.append(reduce(torch.minimum, [p[1] for p in parts]))
     cube_np, guard_np = _pull(torch.cat(cubes), torch.stack(guards))
     out = np.empty_like(cube_np)
     out[np.concatenate(idxs)] = cube_np
@@ -736,7 +821,7 @@ def reconstruct_batch(seeing, GL, L0, gs_mask, lbda, h=(100, 10000),
             "%d rows with the full window", float(guard_np[i]), len(idx))
         out[idx] = reconstruct_batch(
             seeing[idx], GL[idx], L0[idx], gs_mask[idx], lbda, h, npsflin,
-            cfg, plan.chunk, device, _force_full=True)
+            cfg, plan.chunk, device, _force_full=True, mesh=mesh)
     return out
 
 
@@ -744,7 +829,7 @@ def process_batch(seeing, GL, L0, gs_mask, lbda, h=(100, 10000),
                   npsflin: int = 1, cfg: GalacsiConfig = None,
                   chunk: int = 8, fit_dtype: str = None, device="cuda",
                   on_chunk=None, on_redo_start=None, on_final=None,
-                  _force_full=False, _return_parts=False):
+                  _force_full=False, _return_parts=False, mesh=None):
     """Full batch: reconstruct, Moffat-fit and average on the device.
 
     Returns numpy ``(fit_packed, psf_mean, fit_mean_packed)``: per-row
@@ -769,11 +854,22 @@ def process_batch(seeing, GL, L0, gs_mask, lbda, h=(100, 10000),
     chunks after the guards are read, and once for the redone rows after
     their corrected delivery.
 
+    With ``mesh`` (:func:`parallel.mesh.default_mesh`) each chunk's rows
+    are split over the mesh's devices, and ``device`` only names their
+    type.  Shard ``i`` runs the chunk step on its slice, on its device,
+    with only its real rows in its PSF sum; the fits are concatenated,
+    the sums added and the guards' minimum taken in shard order, on this
+    process's first device.  Under a process group every rank calls with
+    the same telemetry, the shards are gathered from every rank after each
+    chunk, and every rank returns the whole night, equal bit for bit, and
+    calls ``on_chunk``, ``on_redo_start`` and ``on_final`` with the whole
+    chunk.
+
     ``_return_parts`` (the redo, whose full window cannot trip): return
     the device tensors ``(fit in input order, psf_sum)`` without host
     copies.
     """
-    dev = resolve_device(device)
+    dev = _night_device(device, mesh)
     cfg = cfg or GalacsiConfig()
     fit_dtype = fit_dtype or cfg.fit_dtype
     seeing = np.atleast_1d(np.asarray(seeing, np.float64))
@@ -781,16 +877,19 @@ def process_batch(seeing, GL, L0, gs_mask, lbda, h=(100, 10000),
     L0 = np.atleast_1d(np.asarray(L0, np.float64))
     gs_mask = np.atleast_2d(np.asarray(gs_mask, np.float64))
     plan = plan_batch(seeing, GL, L0, gs_mask, lbda, h, npsflin, cfg, chunk,
-                      force_full=_force_full, device=dev)
-    (lbda_d, npixc_d), chunks = _chunks(plan, dev)
+                      force_full=_force_full, device=dev, mesh=mesh)
     idxs, fits, psums = [], [], []
     guards, guarded = [], []      # guards of the reduced-window chunks
     count = 0
-    for gcfg, rows, t in chunks:
+    for gcfg, rows, shards in _chunks(plan, dev, mesh):
         n = len(rows)
-        fit, psum, guard = _fit_chunk(t, n, lbda_d, npixc_d, plan.h,
-                                      plan.wind_speed, npsflin, gcfg,
-                                      fit_dtype)
+        parts = _replicate_for_host(mesh, dev, [
+            _fit_chunk(t, n_valid, lbda_d, npixc_d, plan.h, plan.wind_speed,
+                       npsflin, gcfg, fit_dtype)
+            for t, n_valid, lbda_d, npixc_d in shards])
+        fit = _cat([p[0] for p in parts])
+        psum = reduce(torch.add, [p[1] for p in parts])     # shard order
+        guard = reduce(torch.minimum, [p[2] for p in parts])
         idxs.append(rows)
         fits.append(fit[:n])
         psums.append(psum)
@@ -841,7 +940,8 @@ def process_batch(seeing, GL, L0, gs_mask, lbda, h=(100, 10000),
     fit_redo, psum_redo = process_batch(
         seeing[redo_idx], GL[redo_idx], L0[redo_idx], gs_mask[redo_idx],
         lbda, h, npsflin, cfg, plan.chunk, fit_dtype, device,
-        on_chunk=on_chunk_redo, _force_full=True, _return_parts=True)
+        on_chunk=on_chunk_redo, _force_full=True, _return_parts=True,
+        mesh=mesh)
     old_sub = torch.sum(torch.stack([psums[i] for i in tripped]), dim=0)
     psf_mean = (total_psum - old_sub + psum_redo) / count
     fit_mean = fit_moffat_cube_packed(psf_mean, dtype=fit_dtype)

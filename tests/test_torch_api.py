@@ -235,10 +235,9 @@ def test_package_exports_the_user_layer():
     import muse_psfr_tpu as jpkg
     import muse_psfr_tpu_torch as tpkg
     missing = set(jpkg.__all__) - set(tpkg.__all__)
-    # default_mesh waits for the multi-GPU slice; fft_available is the TPU
-    # runtime's probe, left out on purpose
-    assert missing == {"default_mesh", "fft_available"}
-    assert len(tpkg.__all__) == len(jpkg.__all__) - 2
+    # fft_available is the TPU runtime's probe, left out on purpose
+    assert missing == {"fft_available"}
+    assert len(tpkg.__all__) == len(jpkg.__all__) - 1
     assert set(tpkg.__all__) <= set(jpkg.__all__)
     for name in tpkg.__all__:
         assert hasattr(tpkg, name), name

@@ -7,7 +7,8 @@ products summed in another order; against "highest" <= 2e-5), K2 <= 1e-6,
 K2 at "high" (the tensor-core body, <= 3e-5 of max|out| from its plain
 version: the tier's own distance from float64 is 1e-5, see
 ``test_conv_high_kernel_matches_plain``), K1 on a strided structure
-function, the batch night through the kernels, the nights at a lower
+function, the batch night through the kernels (also over a two-shard
+mesh on one card), the nights at a lower
 ``conv_precision``/``matmul_precision`` and the float64 compat layer on
 the card against the CPU.  Marked ``cuda``:
 skipped where no CUDA card is present (CUDA kernels have no CPU mode).
@@ -347,6 +348,29 @@ def test_night_runs_both_kernels(dev):
     ref = process_batch(*args, cfg=cfg, chunk=2, device="cpu")
     assert np.abs(psf_mean - ref[1]).max() <= 1e-5 * np.abs(ref[1]).max()
     assert np.all(fit[..., -1] == 1.0)
+
+
+def test_two_shard_mesh_night_matches_the_single_device_night(dev):
+    """A small dim-512 night with both support buckets over the mesh
+    ``["cuda:0", "cuda:0"]``: within the JAX package's mesh limits of the
+    night without a mesh (fits 1e-4, mean PSF 1e-6), each shard launching
+    the zoom kernel."""
+    from muse_psfr_tpu_torch.config import GalacsiConfig
+    from muse_psfr_tpu_torch.parallel.batch import process_batch
+    from muse_psfr_tpu_torch.parallel.mesh import default_mesh
+    cfg = GalacsiConfig(dim=512, dim_pup=24, dimpsf=12, use_fft=False)
+    tel = ([1.0, 0.2, 1.3, 0.25, 1.1, 0.22, 1.2, 0.3],
+           [0.7, 0.01, 0.5, 0.02, 0.6, 0.015, 0.65, 0.03],
+           [25.0, 30.0, 18.0, 29.0, 22.0, 28.0, 24.0, 27.0],
+           np.ones((8, 4)), [750.0, 930.0])
+    want = process_batch(*tel, cfg=cfg, chunk=8, device="cuda")
+    _build.reset_launch_counts()
+    got = process_batch(*tel, cfg=cfg, chunk=8, device="cuda",
+                        mesh=default_mesh(["cuda:0", "cuda:0"]))
+    counts = _build.launch_counts()
+    assert counts["zoom_dft_tc"] + counts["zoom_dft_tc_rowsplit"] >= 2
+    for g, w, atol in zip(got, want, (1e-4, 1e-6, 1e-4)):
+        assert np.abs(g - w).max() <= atol
 
 
 def test_anchored_night_runs_k6(dev):

@@ -136,7 +136,9 @@ def test_the_scan_covers_compat_and_the_new_modules():
     assert {"chip_smoke.py", "muse_psfr_tpu_torch/compat.py",
             "muse_psfr_tpu_torch/ops/conv_dft.py",
             "muse_psfr_tpu_torch/psd/model.py",
-            "muse_psfr_tpu_torch/core/grids.py"} <= rel
+            "muse_psfr_tpu_torch/core/grids.py",
+            "muse_psfr_tpu_torch/parallel/mesh.py",
+            "muse_psfr_tpu_torch/parallel/multihost_demo.py"} <= rel
 
 
 def test_cuda_request_without_cuda_raises():
@@ -147,6 +149,18 @@ def test_cuda_request_without_cuda_raises():
     with pytest.raises(RuntimeError, match="cuda"):
         batch.process_batch([1.0], [0.7], [25.0], np.ones((1, 4)), [900.0],
                             cfg=TINY_CONFIG)       # device defaults to cuda
+
+
+def test_default_mesh_raises_without_a_card():
+    """No CPU fallback: a mesh of CUDA devices needs a card, whether it
+    is every local device or named ones."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from muse_psfr_tpu_torch.parallel.mesh import default_mesh
+    with pytest.raises(RuntimeError, match="cuda"):
+        default_mesh()
+    with pytest.raises(RuntimeError, match="cuda"):
+        default_mesh(["cuda:0", "cuda:0"])
 
 
 def test_user_entry_points_raise_without_a_card(tmp_path, monkeypatch):
