@@ -112,15 +112,18 @@ Phases (any failure raises, so the exit code is non-zero):
     relative), 1024 rows done in the sidecar, a ``resume=True`` call that
     launches nothing and returns the same arrays, the ``save_sweep`` round
     trip; wall time with and without the checkpoint, guard trips;
-17. K2 at ``conv_precision="high"`` (the tensor-core body,
+17. K2 at ``conv_precision="high"`` (the wgmma tensor-core body,
     ``csrc/conv_dft_tc.cu``: every contraction of the chain as the 3-pass
     bf16 split) at 50 rows x 35 planes, L 64, against its plain version
     (<= 3e-5 of max|out|: two float32 orders of this arithmetic, which
     splits every intermediate anew, lie as far apart as each lies from
     float64, ~1e-5) and against the float64 chain (no further than 1.5x
     the plain version, rms and max), beside the float32 body's distance;
-    bit-identical on a rerun; timed in turns with the float32 body (old,
-    new, new, old) and beside the cuFFT route;
+    bit-identical on a rerun; timed in turns with the mma.sync body it
+    replaced (``tools/mma_sync_bodies/conv_dft_tc_mma.cu``, built apart:
+    old, new, new, old; the new body must be the faster in every turn),
+    then with the float32 body, beside the cuFFT route; its ptxas
+    registers and spills (0 spills required);
 18. the 1- and the 9-direction FFT-free nights at ``conv_precision=
     "high"``: only the tensor-core K2 launched, never the float32 one;
     mean PSF within 3e-5 (the tier's own distance from float64 at the
@@ -171,7 +174,8 @@ Phases (any failure raises, so the exit code is non-zero):
     FLOPs over 67 TFLOP/s, bf16 tensor-core FLOPs (three or six passes)
     over 989 TFLOP/s, exponentials over the SFU's 16 a clock per SM), from
     this run's shapes; ``fma_body_ms`` on the "highest" records is the FMA
-    body's time in turns; the card line, and the final status line
+    body's time in turns, ``mma_sync_body_ms`` on K2 high's the mma.sync
+    body's; the card line, and the final status line
     ``{"ok": true, "device": {...}}``.
 
 The default-config nights must launch neither K5 nor K6, and no night
@@ -1185,11 +1189,34 @@ def default_config_night(cfg, rows, card, guard_log, fft_free, exact,
     return counts
 
 
-def check_conv_high_kernel(torch, cfg, dev, rows):
-    """K2 at conv_precision "high" (the tensor-core body) at one
+def mma_sync_body():
+    """The mma.sync body of K2 at "high" that the wgmma body replaced,
+    built from ``tools/mma_sync_bodies/`` (``tools/ab_conv_chain.py``)."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import ab_conv_chain
+    return ab_conv_chain.MmaSyncBody()
+
+
+def ptxas_report(entry):
+    """Registers and spills of the build's kernels whose name holds
+    ``entry``, from the ptxas report of ``_build.BUILD_LOG``."""
+    from muse_psfr_tpu_torch.ops import _build
+    lines = _build.BUILD_LOG.splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and entry in line:
+            tail = [x.strip() for x in lines[i + 1:i + 4]]
+            out.append(" ".join(x for x in tail
+                                if "spill" in x or "registers" in x))
+    return out
+
+
+def check_conv_high_kernel(torch, cfg, dev, rows, old):
+    """K2 at conv_precision "high" (the wgmma tensor-core body) at one
     production chunk, with the real Moffat spectra: against its plain
     version and the float64 chain, beside the float32 body; times in turns
-    with the float32 body, beside the cuFFT route."""
+    with the mma.sync body it replaced (``old``), beside the float32 body
+    and the cuFFT route; its registers and spills."""
     from muse_psfr_tpu_torch.ops import _build, conv_dft
     from muse_psfr_tpu_torch.otf.convolve import _fft_convolve_same
     args, (k_tt, k_i), s64 = conv_inputs(torch, cfg, dev, rows)
@@ -1237,17 +1264,41 @@ def check_conv_high_kernel(torch, cfg, dev, rows):
         y = _fft_convolve_same(planes, k_tt[:, None], n, nk)
         return _fft_convolve_same(y, k_i[None], n, nk)
 
-    turns = in_turns(
-        torch, lambda: conv_dft.fused_conv_chain(*args),
-        lambda: conv_dft.fused_conv_chain(*args, precision="high"), 50)
+    old_out = old(*args)
+    torch.cuda.synchronize()
+    print(f"K2 high mma.sync body (tools/mma_sync_bodies/): relative max-abs "
+          f"{rel_err(torch, old_out, bodies['plain high'])[1]:.3e} from the "
+          f"plain version, {rel_err(torch, old_out, bodies['K2 high'])[1]:.3e}"
+          f" from the wgmma body (bit-identical: "
+          f"{bool(torch.equal(old_out, bodies['K2 high']))})")
+    del old_out
+
+    def new():
+        return conv_dft.fused_conv_chain(*args, precision="high")
+
+    turns = in_turns(torch, lambda: old(*args), new, 50)
+    f32 = in_turns(torch, lambda: conv_dft.fused_conv_chain(*args), new, 50)
     fft_ms = cuda_ms(torch, fft_route, 50)
     plain_ms = cuda_ms(torch, lambda: conv_dft.fused_conv_chain_reference(
         *args, precision="high"), 10)
-    ms = min(turns["new"])
-    print(f"K2 times [ms] in turns: float32 body {turns['old'][0]:.4f}, "
-          f"tensor-core body {turns['new'][0]:.4f}, tensor-core body "
-          f"{turns['new'][1]:.4f}, float32 body {turns['old'][1]:.4f}; the "
-          f"cuFFT route {fft_ms:.4f}; plain 3-pass PyTorch {plain_ms:.4f}")
+    ms = min(turns["new"] + f32["new"])
+    print(f"K2 high times [ms] in turns: mma.sync body {turns['old'][0]:.4f}"
+          f", wgmma body {turns['new'][0]:.4f}, wgmma body "
+          f"{turns['new'][1]:.4f}, mma.sync body {turns['old'][1]:.4f}; then "
+          f"float32 body {f32['old'][0]:.4f}, wgmma body {f32['new'][0]:.4f},"
+          f" wgmma body {f32['new'][1]:.4f}, float32 body "
+          f"{f32['old'][1]:.4f}; the cuFFT route {fft_ms:.4f}; plain 3-pass "
+          f"PyTorch {plain_ms:.4f}")
+    ptxas = ptxas_report("fused_conv_chain_tc_kernel")
+    print("K2 high ptxas (one instantiation per plane side / 16): "
+          + "; ".join(ptxas))
+    if not max(turns["new"]) < min(turns["old"]):
+        raise RuntimeError(f"the wgmma body is not faster than the mma.sync "
+                           f"body in turns: {turns}")
+    if not ptxas:
+        raise RuntimeError("no ptxas report of K2 high in the build log")
+    if any(" 0 bytes spill stores" not in x for x in ptxas):
+        raise RuntimeError(f"K2 high spills registers: {ptxas}")
     # the contractions in three bf16 passes on the tensor cores; the
     # spectrum product, the sums of two products and the splits (~8 + ~6
     # operations per element of every stage) in float32
@@ -1263,9 +1314,10 @@ def check_conv_high_kernel(torch, cfg, dev, rows):
             "source": "muse_psfr_tpu_torch/csrc/conv_dft_tc.cu",
             "replaces": "muse_psfr_tpu/ops/conv_dft.py:139",
             "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
-            "float32_body_ms": min(turns["old"]), "fft_route_ms": fft_ms,
+            "mma_sync_body_ms": min(turns["old"]),
+            "float32_body_ms": min(f32["old"]), "fft_route_ms": fft_ms,
             "f64_rel_err": emax["K2 high"], "f64_rms": erms["K2 high"],
-            **bound}
+            "ptxas": ptxas, **bound}
 
 
 def nights_in_turns(rows, nights, warm, card, label):
@@ -2029,7 +2081,12 @@ def main(argv):
                                       dev, rows, 1, lb3, row_splits=r_cli,
                                       label="K3 high CLI"))
     k2 = check_conv_kernel(torch, cfg, dev, rows)
-    k2h = check_conv_high_kernel(torch, cfg, dev, rows)
+    t0 = time.perf_counter()
+    mma_sync = mma_sync_body()
+    print(f"built the mma.sync body of K2 high of tools/mma_sync_bodies/ in "
+          f"{time.perf_counter() - t0:.1f} s (the yardstick of the wgmma "
+          f"body; the package never launches it)")
+    k2h = check_conv_high_kernel(torch, cfg, dev, rows, mma_sync)
     k5, k6, t5, t6 = check_disc_anchor_kernels(torch, cfg, dev, rows, old)
 
     counts, cli_counts, night, exact1 = main_path(torch, cfg, rows, card)

@@ -1,5 +1,5 @@
 // K2 at conv_precision "high": the fused final-PSF convolution chain on
-// Hopper tensor cores.
+// Hopper's warpgroup tensor-core products (wgmma, sm_90a).
 //
 // Replaces muse_psfr_tpu/ops/conv_dft.py:fused_conv_chain with
 // precision="high" (body _kernel / _conv_pack, whose every product is
@@ -9,80 +9,470 @@
 // W = C - iS and off = (n_ker - 1) / 2:
 //
 //   S1  A = C[:, :n] X,  B = S[:, :n] X                        (L x n)
-//   S2  F = (A - iB) W[:n, :] ,  H = F * G                      (L x L)
-//   S3  a + ib = conj(W)[off:off+n, :] H                        (n x L)
-//   S4  Y = Re((a + ib) conj(W)[:, off:off+n]) / L^2            (n x n)
+//   S2  Fr = A C[:n] - B S[:n],  Fi = -(A S[:n] + B C[:n]),  H = F * G
+//   S3  a = Cw Hr - Sw Hi,  b = Cw Hi + Sw Hr                   (n x L)
+//   S4  Y = (a Cw^T - b Sw^T) / L^2                             (n x n)
 //
-// but each of its twelve real products as the 3-pass bf16 split
+// (Cw, Sw = C, S[off:off+n, :]), each of its twelve real products as the
+// 3-pass bf16 split
 //
 //     P Q  ~  P_hi Q_hi + P_hi Q_lo + P_lo Q_hi
 //
 // with x_hi = bf16(x), x_lo = bf16(x - x_hi) (round to nearest even; lo = 0
-// where hi is infinite) and float32 accumulation: mma.sync.m16n8k16 on the
-// tensor cores.  The products of bf16 values are exact in float32, so this
-// is the arithmetic of the plain version (ops/conv_dft.py:
-// fused_conv_chain_reference at "high") up to the order of the float32 sums;
-// the dropped lo*lo term is ~2^-16 relative per product.  Both operands of
-// every product are split inside the kernel: C and S once per block when
-// they are staged, every intermediate (X, A, B, H, a, b) from its float32
-// accumulators when its stage stores it, so each product sees the float32
-// value of the stage before it and never a bf16-rounded copy; the second
-// convolution takes the first one's float32 result the same way.  The
-// spectrum product, the sums of two products and the scale by 1/L^2 are
-// float32 operations with the plain version's roundings (no fused
-// multiply-add).
+// where hi is infinite) and float32 accumulation.  The products of bf16
+// values are exact in float32, so this is the arithmetic of the plain
+// version (ops/conv_dft.py:fused_conv_chain_reference at "high") up to the
+// order of the float32 sums; the dropped lo*lo term is ~2^-16 relative per
+// product.  Every operand is split inside the kernel from its float32
+// value: C and S once per block, every intermediate from its float32
+// accumulators, the second convolution's input from the first one's
+// float32 result.  A product truncates inside its sum, so each step of 32
+// contraction values runs its passes in a fresh accumulator and the steps
+// (at most two: the contractions are n <= 64 or L <= 64 long) are added with
+// rounded float32 adds, the order of ops/zoom_dft.py:contract.  The spectrum
+// product, the sums of two products and the scale by 1/L^2 are float32
+// operations with the plain version's roundings (no fused multiply-add).
 //
 // What bounds it: 12.0 GFLOP of contraction at 50 rows x 35 planes, three
 // passes: 36 GFLOP of bf16 tensor-core work, 0.04 ms at the 989 TFLOP/s
-// peak, against 25 MB of device-memory traffic; in this body the ldmatrix
-// reads of shared memory (about two for every three mma) and the barriers
-// between the stages.
+// peak, against 25 MB of device-memory traffic.  The design:
 //
-// The design, per block of 256 threads (8 warps) owning one row b and a
-// group of planes (the next plane copied in by cp.async while the current
-// one computes, as in conv_dft.cu):
+// - Every stage is one 64-row warpgroup product per 32 output columns
+//   (wgmma.mma_async m64n32k16, wgmma_common.cuh), the plane side padded
+//   with zeros to the next multiple of 16 (a template parameter: one
+//   instantiation per n / 16) and the contractions over the transform to
+//   64.  The products of a batch are compile-time constants: a run-time
+//   branch between two wgmma makes ptxas fence the warpgroup there.  Zero
+//   rows and columns add exact zeros, so the padding leaves every float32
+//   sum as it is.  S1 and S3 read both operands
+//   from shared memory; S2 and S4 take their A operands (S1's A, B and S3's
+//   a, b) from registers: the accumulator of a wgmma is laid out as the A
+//   fragment of the next, so those four intermediates are split into bf16
+//   (hi, lo) pairs in registers and never stored.  Only X (S1's B operand)
+//   and H (S3's) go through shared memory, written straight from the
+//   accumulators (or from the plane) into the K-major layout the
+//   descriptors read.
+// - C and S are staged once per block as four K-major tile pairs: C, S
+//   (S1's A operand and, being symmetric, S2's B) and the window slices
+//   Cw, Sw, zero past row n (S3's A operand and S4's B): off = 20 at
+//   dimpsf 40 is no multiple of the 8-row core matrix, so the window is a
+//   tile of its own.
+// - Two warpgroups a block, each with its own plane, its own X and H tiles
+//   and its own named barrier: no block-wide barrier in the plane loop.  A
+//   warpgroup copies its next plane in by cp.async while it computes the
+//   current one.
+// - A persistent grid of `blocks` blocks (one per SM, from the wrapper's
+//   launch plan, ops/conv_dft.py:tc_launch_plan) walks the flattened
+//   (row, plane) list: warpgroup w of block b takes items
+//   b + w * blocks + k * 2 * blocks.  No atomics and a fixed order of sums,
+//   so a rerun is bit-identical.
 //
-// - Every operand lives in shared memory as a pair of bf16 tiles (hi, lo)
-//   of 144-byte row pitch, which ldmatrix reads without bank conflicts.
-//   C and S are symmetric, so one staged copy serves as the row-major A
-//   operand (rows = output rows) and, read as [n][k], as the column-major
-//   B operand.  An intermediate is stored row-major as its stage's
-//   accumulators hold it: that is the A operand layout [m][k] where the
-//   next stage contracts over its columns (A, B, a, b), and the [k][n]
-//   layout read by ldmatrix.trans where it contracts over its rows (X, H).
-//   No stage transposes anything.
-// - A stage is a list of m16 x n8 output tiles dealt round-robin to the
-//   warps.  A tile runs the complex form acc1 = u p - v q, acc2 = u q + v p
-//   (u, v the A operands; p, q the B operands; S1 and S4 need half of it)
-//   with each of the four products in its own accumulators, as the plain
-//   version's four matmuls, then one rounded float32 add or subtract.
-// - An mma truncates inside its sum.  So each step of 32 contraction rows
-//   runs its passes (hi*hi, hi*lo, lo*hi of each k16 half) in a fresh
-//   fragment, and the steps (at most two: the contractions are n <= 64 or
-//   L <= 64 long) are added with rounded float32 adds, the order of
-//   ops/zoom_dft.py:contract.
-// - Padding is zeros by construction: tiles are zeroed once, n is padded
-//   to a multiple of 16 where it is contracted over (40 -> 48: X's rows
-//   40..47 and A's, B's columns 40..47 are never written), and C, S are
-//   staged with zero rows and columns past L, so no stage masks an operand;
-//   only the stores of S4 are masked to the plane.
-//
-// Shared memory: 4 constant tiles of 80 x 72 and 14 operand tiles of
-// 64 x 72 bf16, and the float32 plane double buffer: 187.8 KB at n = 40,
-// one block per SM.  The transform size and plane side are run-time values
-// up to 64.
+// Shared memory: 8 constant and 2 x 6 own tiles of 64 x 64 bf16 (160 KB)
+// and each warpgroup's float32 plane double buffer: 185.6 KB at n = 40, one
+// block per SM.  The transform size and the plane side are at most 64.
 
-#include "mma_common.cuh"
+#include "wgmma_common.cuh"
 
 namespace {
 
-constexpr int NT = 256;        // threads per block
-constexpr int NWARP = NT / 32;
-constexpr int MAXL = 64;       // largest transform size (and plane side)
-constexpr int P = MAXL + 8;    // tile pitch [bf16]: 144 B, conflict-free
-constexpr int CROWS = MAXL + 16;  // rows of a constant tile: off + n + 15 at most
-constexpr int C_TILE = CROWS * P;   // bf16 per constant tile
-constexpr int T_TILE = MAXL * P;    // bf16 per operand tile
+constexpr int WGS = 2;              // warpgroups per block
+constexpr int NT = WGS * 128;       // threads per block
+constexpr int MAXL = 64;            // largest transform size (and plane side)
+constexpr int TILE = MAXL * MAXL;   // bf16 per tile
+constexpr int TILE_B = TILE * 2;    // bytes per tile
+constexpr int NCONST = 8;           // C, S, Cw, Sw: (hi, lo) each
+constexpr int NOWN = 6;             // a warpgroup's X, Hr, Hi: (hi, lo) each
+constexpr int NK16 = MAXL / 16;     // steps of 16 contraction values
+// the first tile of each pair: constants from the block's base, the
+// warpgroup's own from its own base
+constexpr int T_C = 0, T_S = 2, T_CW = 4, T_SW = 6;
+constexpr int O_X = 0, O_HR = 2, O_HI = 4;
+
+// shared addresses of a tile pair (hi, lo), for stores
+struct Pair {
+  uint32_t hi, lo;
+};
+
+// descriptors of a tile pair's first 16 contraction values, for products
+struct DPair {
+  uint64_t hi, lo;
+};
+
+__device__ __forceinline__ Pair pair(uint32_t base, int first) {
+  return Pair{base + first * TILE_B, base + (first + 1) * TILE_B};
+}
+
+// from the descriptor of the tile at `base`: the descriptor's address
+// field counts 16 bytes and stays below 2^14, so an offset adds to it
+__device__ __forceinline__ DPair dpair(uint64_t base, int first) {
+  return DPair{base + first * TILE_B / 16, base + (first + 1) * TILE_B / 16};
+}
+
+// descriptor of the 16 contraction values of step s from row r0 on
+__device__ __forceinline__ uint64_t desc_at(uint64_t tile, int r0, int s) {
+  return tile + (s * (2 * 8 * MAXL * 2) + r0 * 16) / 16;
+}
+
+// a value the compiler cannot see through: what is computed from it stays
+// next to its use instead of being hoisted out of the plane loop, where
+// every descriptor of the chain would hold registers at once
+__device__ __forceinline__ uint32_t opaque(uint32_t v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+__device__ __forceinline__ uint64_t opaque64(uint64_t v) {
+  asm volatile("" : "+l"(v));
+  return v;
+}
+
+// element offset of (r, k) in a tile
+__device__ __forceinline__ int at(int r, int k) {
+  return kmajor_offset(MAXL, r, k);
+}
+
+__device__ __forceinline__ void st_bf16(uint32_t addr, __nv_bfloat16 v) {
+  asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(addr),
+               "h"(*reinterpret_cast<const unsigned short*>(&v))
+               : "memory");
+}
+
+// the two parts of v into tile pair (hi, lo) at byte offset o
+__device__ __forceinline__ void store_split(const Pair& t, int o, float v) {
+  const __nv_bfloat16 hi = __float2bfloat16_rn(v);
+  const float f = __bfloat162float(hi);
+  st_bf16(t.hi + o, hi);
+  st_bf16(t.lo + o, __float2bfloat16_rn(isinf(f) ? 0.f : __fsub_rn(v, f)));
+}
+
+// the two parts of two adjacent float32 values as bf16 pairs (the lower
+// column in the lower half), as an A fragment holds them
+__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 f = __bfloat1622float2(h);
+  const __nv_bfloat162 l =
+      __floats2bfloat162_rn(isinf(f.x) ? 0.f : __fsub_rn(v0, f.x),
+                            isinf(f.y) ? 0.f : __fsub_rn(v1, f.y));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// Steps s0 and s0 + 1 (those below nk) of acc = A B, three passes a step,
+// for 32 output columns: A the 64 rows of tile pair `a`, B the rows n0..
+// of tile pair `b`; the step's first pass overwrites acc.  The
+// descriptors come from opaque copies of the bases, so they are computed
+// here, next to their products, and hold no registers in between.
+__device__ __forceinline__ void prod_ss(float (&acc)[16], const DPair& a,
+                                        const DPair& b, int n0, int s0,
+                                        int nk) {
+  const uint64_t a_hi = opaque64(a.hi), a_lo = opaque64(a.lo);
+  const uint64_t b_hi = opaque64(b.hi), b_lo = opaque64(b.lo);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int s = s0 + h;
+    if (s < nk) {
+      const uint64_t ah = desc_at(a_hi, 0, s), al = desc_at(a_lo, 0, s);
+      const uint64_t bh = desc_at(b_hi, n0, s), bl = desc_at(b_lo, n0, s);
+      wgmma_m64n32k16_ss(acc, ah, bh, h);
+      wgmma_m64n32k16_ss(acc, ah, bl, 1);
+      wgmma_m64n32k16_ss(acc, al, bh, 1);
+    }
+  }
+}
+
+// the same with A from registers: the fragments (hi, lo) of every step
+template <int NK>
+__device__ __forceinline__ void prod_rs(float (&acc)[16],
+                                        const uint32_t (&ah)[NK][4],
+                                        const uint32_t (&al)[NK][4],
+                                        const DPair& b, int n0, int s0,
+                                        int nk) {
+  const uint64_t b_hi = opaque64(b.hi), b_lo = opaque64(b.lo);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int s = s0 + h;
+    if (s < NK && s < nk) {
+      const uint64_t bh = desc_at(b_hi, n0, s), bl = desc_at(b_lo, n0, s);
+      wgmma_m64n32k16_rs(acc, ah[s], bh, h);
+      wgmma_m64n32k16_rs(acc, ah[s], bl, 1);
+      wgmma_m64n32k16_rs(acc, al[s], bh, 1);
+    }
+  }
+}
+
+__device__ __forceinline__ void fence_all(float (&a)[16], float (&b)[16],
+                                          float (&c)[16]) {
+  fence_regs(a);
+  fence_regs(b);
+  fence_regs(c);
+}
+
+// Two products p1 = A1 B1 and p2 = A2 B2 of nk steps of 16 contraction
+// values, each 32-value step in a fresh accumulator and the steps added
+// in float32: the first steps of both and the second of p1 (into t) run
+// as one group, the second of p2 (into t again) after it.  SS: A and B
+// from shared memory.
+__device__ __forceinline__ void batch_ss(float (&p1)[16], const DPair& a1,
+                                         const DPair& b1, float (&p2)[16],
+                                         const DPair& a2, const DPair& b2,
+                                         int n0, int nk) {
+  float t[16] = {};
+  fence_all(p1, p2, t);
+  wgmma_fence();
+  prod_ss(p1, a1, b1, n0, 0, nk);
+  prod_ss(p2, a2, b2, n0, 0, nk);
+  prod_ss(t, a1, b1, n0, 2, nk);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_all(p1, p2, t);
+  if (nk > 2) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) p1[e] = __fadd_rn(p1[e], t[e]);
+    fence_regs(t);
+    wgmma_fence();
+    prod_ss(t, a2, b2, n0, 2, nk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(t);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) p2[e] = __fadd_rn(p2[e], t[e]);
+  }
+}
+
+// the same with A1, A2 from registers
+template <int NK>
+__device__ __forceinline__ void batch_rs(
+    float (&p1)[16], const uint32_t (&a1h)[NK][4],
+    const uint32_t (&a1l)[NK][4], const DPair& b1, float (&p2)[16],
+    const uint32_t (&a2h)[NK][4], const uint32_t (&a2l)[NK][4],
+    const DPair& b2, int n0, int nk) {
+  float t[16] = {};
+  fence_all(p1, p2, t);
+  wgmma_fence();
+  prod_rs<NK>(p1, a1h, a1l, b1, n0, 0, nk);
+  prod_rs<NK>(p2, a2h, a2l, b2, n0, 0, nk);
+  prod_rs<NK>(t, a1h, a1l, b1, n0, 2, nk);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_all(p1, p2, t);
+  if (nk > 2) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) p1[e] = __fadd_rn(p1[e], t[e]);
+    fence_regs(t);
+    wgmma_fence();
+    prod_rs<NK>(t, a2h, a2l, b2, n0, 2, nk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(t);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) p2[e] = __fadd_rn(p2[e], t[e]);
+  }
+}
+
+// 32 accumulator columns of chunk C split into the A fragments of their two
+// steps of 16 (fragment register q = accumulators 8 h + 2 q, + 1)
+template <int NK>
+__device__ __forceinline__ void to_frags(int C, const float (&d)[16],
+                                         uint32_t (&hi)[NK][4],
+                                         uint32_t (&lo)[NK][4]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    if (2 * C + h < NK) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        split2(d[8 * h + 2 * q], d[8 * h + 2 * q + 1], hi[2 * C + h][q],
+               lo[2 * C + h][q]);
+    }
+}
+
+// accumulator e of this thread: row r0 + row_of(e), column
+// 32 (chunk) + c0 + col_of(e)
+__device__ __forceinline__ int row_of(int e) { return ((e >> 1) & 1) * 8; }
+__device__ __forceinline__ int col_of(int e) {
+  return (e >> 2) * 8 + (e & 1);
+}
+
+// what a warpgroup works with: the shared address of the constant tiles
+// and of its own, for stores, and the descriptors of each first tile, for
+// products; this thread's accumulator position (rows r0, r0 + 8; columns
+// c0, c0 + 1 of each 8-column block) and the byte offset in a [N][K] tile
+// of its element (row r0 of the product, column c0), where an
+// accumulator's element (r, c) goes to tile row c, contraction value r
+struct Ctx {
+  uint32_t base, own;
+  uint64_t dbase, down;
+  int r0, c0, o0;
+};
+
+// the byte offset, from o0, of accumulator e of chunk c in a [N][K] tile:
+// tile row 32 c + c0 + col_of(e), contraction value r0 + row_of(e)
+__device__ __forceinline__ int nk_offset(int c, int e) {
+  return 2 * (((e >> 1) & 1) * 8 * MAXL + (32 * c + col_of(e)) * 8);
+}
+
+// S1: A = C X, B = S X as S2's A fragments (NKN steps of 16 over n)
+template <int NKN>
+__device__ __forceinline__ void stage1(const Ctx& cx, uint32_t (&ah)[NKN][4],
+                                       uint32_t (&al)[NKN][4],
+                                       uint32_t (&bh)[NKN][4],
+                                       uint32_t (&bl)[NKN][4]) {
+#pragma unroll
+  for (int j = 0; j < (NKN + 1) / 2; ++j) {
+    float pa[16] = {}, pb[16] = {};
+    batch_ss(pa, dpair(cx.dbase, T_C), dpair(cx.down, O_X), pb,
+             dpair(cx.dbase, T_S), dpair(cx.down, O_X), 32 * j, NKN);
+    to_frags<NKN>(j, pa, ah, al);
+    to_frags<NKN>(j, pb, bh, bl);
+  }
+}
+
+// S2: F = (A - iB)(C - iS)[:n, :], H = F * G into this warpgroup's H tiles
+template <int NKN>
+__device__ __forceinline__ void stage2(const Ctx& cx,
+                                       const float* __restrict__ g_r,
+                                       const float* __restrict__ g_i, int L,
+                                       uint32_t (&ah)[NKN][4],
+                                       uint32_t (&al)[NKN][4],
+                                       uint32_t (&bh)[NKN][4],
+                                       uint32_t (&bl)[NKN][4]) {
+  const DPair c_t = dpair(cx.dbase, T_C), s_t = dpair(cx.dbase, T_S);
+  const Pair hr_t = pair(cx.own, O_HR), hi_t = pair(cx.own, O_HI);
+  // this thread's spectrum elements: rows r0 (+ 8), columns from c0 on
+  const int g0 = cx.r0 * L + cx.c0;
+#pragma unroll
+  for (int c = 0; c < NK16 / 2; ++c) {
+    if (c * 32 >= L) break;   // see stage3
+    float fr[16];
+    {
+      float p1[16] = {}, p2[16] = {};
+      // A C, B S
+      batch_rs<NKN>(p1, ah, al, c_t, p2, bh, bl, s_t, 32 * c, NKN);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) fr[e] = __fsub_rn(p1[e], p2[e]);
+    }
+    float p1[16] = {}, p2[16] = {};
+    // A S, B C
+    batch_rs<NKN>(p1, ah, al, s_t, p2, bh, bl, c_t, 32 * c, NKN);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int r = cx.r0 + row_of(e), col = 32 * c + cx.c0 + col_of(e);
+      const int g = g0 + row_of(e) * L + 32 * c + col_of(e);
+      const bool ok = r < L && col < L;
+      const float gr = ok ? __ldg(g_r + g) : 0.f;
+      const float gi = ok ? __ldg(g_i + g) : 0.f;
+      const float fi = -__fadd_rn(p1[e], p2[e]);
+      const int o = cx.o0 + nk_offset(c, e);
+      store_split(hr_t, o, __fsub_rn(__fmul_rn(fr[e], gr),
+                                     __fmul_rn(fi, gi)));
+      store_split(hi_t, o, __fadd_rn(__fmul_rn(fr[e], gi),
+                                     __fmul_rn(fi, gr)));
+    }
+  }
+}
+
+// S3: a = Cw Hr - Sw Hi, b = Cw Hi + Sw Hr as S4's A fragments
+__device__ __forceinline__ void stage3(const Ctx& cx, int L,
+                                       uint32_t (&ah)[NK16][4],
+                                       uint32_t (&al)[NK16][4],
+                                       uint32_t (&bh)[NK16][4],
+                                       uint32_t (&bl)[NK16][4]) {
+  const DPair cw_t = dpair(cx.dbase, T_CW), sw_t = dpair(cx.dbase, T_SW);
+  const DPair hr_t = dpair(cx.down, O_HR), hi_t = dpair(cx.down, O_HI);
+#pragma unroll
+  for (int c = 0; c < NK16 / 2; ++c) {
+    // a chunk past L is zero; the branch also keeps the compiler from
+    // hoisting the second chunk's work into the first, where it would hold
+    // registers through the products
+    if (c * 32 >= L) break;
+    float p1[16] = {}, p2[16] = {};
+    batch_ss(p1, cw_t, hr_t, p2, sw_t, hi_t, 32 * c, NK16);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) p1[e] = __fsub_rn(p1[e], p2[e]);
+    to_frags<NK16>(c, p1, ah, al);
+    float p3[16] = {}, p4[16] = {};
+    batch_ss(p3, cw_t, hi_t, p4, sw_t, hr_t, 32 * c, NK16);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) p3[e] = __fadd_rn(p3[e], p4[e]);
+    to_frags<NK16>(c, p3, bh, bl);
+  }
+}
+
+// S4: Y = (a Cw^T - b Sw^T) / L^2: into this warpgroup's X tiles (zero
+// outside the n x n plane) or, when dst is not null, to dst (n x n)
+template <int NKN>
+__device__ __forceinline__ void stage4(const Ctx& cx, float* __restrict__ dst,
+                                       int n, float inv_l2,
+                                       uint32_t (&ah)[NK16][4],
+                                       uint32_t (&al)[NK16][4],
+                                       uint32_t (&bh)[NK16][4],
+                                       uint32_t (&bl)[NK16][4]) {
+  const DPair cw_t = dpair(cx.dbase, T_CW), sw_t = dpair(cx.dbase, T_SW);
+  const Pair x_t = pair(cx.own, O_X);
+#pragma unroll
+  for (int j = 0; j < (NKN + 1) / 2; ++j) {
+    float p1[16] = {}, p2[16] = {};
+    batch_rs<NK16>(p1, ah, al, cw_t, p2, bh, bl, sw_t, 32 * j, NK16);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const float y = __fmul_rn(__fsub_rn(p1[e], p2[e]), inv_l2);
+      const int r = cx.r0 + row_of(e), col = 32 * j + cx.c0 + col_of(e);
+      const bool in = r < n && col < n;
+      if (dst != nullptr) {
+        if (in) dst[r * n + col] = y;
+      } else {
+        store_split(x_t, cx.o0 + nk_offset(j, e), in ? y : 0.f);
+      }
+    }
+  }
+}
+
+// One 'same' convolution of the plane in this warpgroup's X tiles with the
+// spectrum (g_r, g_i) ([L][L] in device memory): the result back into the
+// X tiles, or, when dst is not null, into dst.
+template <int NKN>
+__device__ __forceinline__ void conv_same(const Ctx& cx0,
+                                          const float* __restrict__ g_r,
+                                          const float* __restrict__ g_i,
+                                          float* __restrict__ dst, int n,
+                                          int L, int bar) {
+  Ctx cx = cx0;
+  cx.own = opaque(cx0.own);
+  cx.dbase = kmajor_desc(opaque(cx0.base), MAXL);
+  cx.down = kmajor_desc(cx.own, MAXL);
+  {
+    uint32_t ah[NKN][4] = {}, al[NKN][4] = {}, bh[NKN][4] = {},
+             bl[NKN][4] = {};
+    stage1<NKN>(cx, ah, al, bh, bl);
+    fence_regs(ah);
+    fence_regs(al);
+    fence_regs(bh);
+    fence_regs(bl);
+    stage2<NKN>(cx, g_r, g_i, L, ah, al, bh, bl);
+    // the fragments live until S2's last product has completed
+    fence_regs(ah);
+    fence_regs(al);
+    fence_regs(bh);
+    fence_regs(bl);
+  }
+  fence_async_shared();
+  warpgroup_bar(bar);   // H complete for S3
+  uint32_t ah[NK16][4] = {}, al[NK16][4] = {}, bh[NK16][4] = {},
+           bl[NK16][4] = {};
+  stage3(cx, L, ah, al, bh, bl);
+  fence_regs(ah);
+  fence_regs(al);
+  fence_regs(bh);
+  fence_regs(bl);
+  stage4<NKN>(cx, dst, n, 1.0f / (float)(L * L), ah, al, bh, bl);
+  fence_regs(ah);
+  fence_regs(al);
+  fence_regs(bh);
+  fence_regs(bl);
+  if (dst == nullptr) {
+    fence_async_shared();
+    warpgroup_bar(bar);   // X complete for the next S1
+  }
+}
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
@@ -91,232 +481,8 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                : "memory");
 }
 
-// the two parts of two adjacent float32 values, packed as the tiles hold
-// them (the lower column in the lower half)
-__device__ __forceinline__ void split2(float v0, float v1, __nv_bfloat162& hi,
-                                       __nv_bfloat162& lo) {
-  hi = __floats2bfloat162_rn(v0, v1);
-  const float2 hf = __bfloat1622float2(hi);
-  lo = __floats2bfloat162_rn(isinf(hf.x) ? 0.f : __fsub_rn(v0, hf.x),
-                             isinf(hf.y) ? 0.f : __fsub_rn(v1, hf.y));
-}
-
-// a pair of bf16 tiles (hi, lo), T_TILE or C_TILE elements each
-struct Pair {
-  __nv_bfloat16 *hi, *lo;
-};
-
-// (v0, v1) at (row, col), col even, into a tile pair
-__device__ __forceinline__ void store_split(const Pair& t, int row, int col,
-                                            float v0, float v1) {
-  __nv_bfloat162 hi, lo;
-  split2(v0, v1, hi, lo);
-  *reinterpret_cast<__nv_bfloat162*>(t.hi + row * P + col) = hi;
-  *reinterpret_cast<__nv_bfloat162*>(t.lo + row * P + col) = lo;
-}
-
-// s += a_hi b_hi + a_hi b_lo + a_lo b_hi on one m16n8k16 fragment
-__device__ __forceinline__ void pass3(float (&s)[4], const uint32_t (&ah)[4],
-                                      const uint32_t (&al)[4], uint32_t bh0,
-                                      uint32_t bh1, uint32_t bl0,
-                                      uint32_t bl1) {
-  mma_bf16(s, ah, bh0, bh1);
-  mma_bf16(s, ah, bl0, bl1);
-  mma_bf16(s, al, bh0, bh1);
-}
-
-// this lane's ldmatrix row address of an A operand: tile rows m0 + lane % 16,
-// column (lane / 16) * 8 of a k16 step
-__device__ __forceinline__ uint32_t a_addr(const __nv_bfloat16* tile, int m0,
-                                           int lane) {
-  return smem_addr(tile + (m0 + (lane & 15)) * P + (lane >> 4) * 8);
-}
-
-// this lane's ldmatrix row address of a B operand over one n8 tile and one
-// step of 32 contraction rows: the four 8 x 8 matrices are k = 0..7, 8..15,
-// 16..23, 24..31, so registers (0, 1) are the fragment of the first k16 half
-// and (2, 3) of the second.  TRANS: the tile is [k][n] (an intermediate),
-// read by ldmatrix.trans, this lane's row k = lane; else it is [n][k] (C or
-// S, symmetric), row n0 + lane % 8, column (lane / 8) * 8
-template <bool TRANS>
-__device__ __forceinline__ uint32_t b_addr(const __nv_bfloat16* tile, int n0,
-                                           int lane) {
-  return TRANS ? smem_addr(tile + lane * P + n0)
-               : smem_addr(tile + (n0 + (lane & 7)) * P + (lane >> 3) * 8);
-}
-
-template <bool TRANS>
-__device__ __forceinline__ void ld_b(uint32_t (&r)[4], uint32_t addr) {
-  if (TRANS)
-    ldsm_x4_trans(r, addr);
-  else
-    ldsm_x4(r, addr);
-}
-
-// One m16 x n8 output tile of a contraction over k16s steps of 16 in the
-// complex form
-//   acc1 = u p - v q,   acc2 = u q + v p
-// MODE 0: no q (acc1 = u p, acc2 = v p); 1: both; 2: acc1 only.  u, v: the
-// A operands' rows m0.., p, q: the B operands' columns n0...  Each product
-// keeps its own sum: per step of 32 contraction rows its passes run in a
-// fresh fragment, and the steps are added in float32.
-template <int MODE, bool TRANS>
-__device__ __forceinline__ void tile_mma(const Pair& u, const Pair& v, int m0,
-                                         const Pair& p, const Pair& q, int n0,
-                                         int k16s, int lane, float (&acc1)[4],
-                                         float (&acc2)[4]) {
-  // bytes from one step of 32 contraction rows to the next in a B operand
-  constexpr uint32_t B_STEP = TRANS ? 32 * P * 2 : 32 * 2;
-  const uint32_t uh = a_addr(u.hi, m0, lane), ul = a_addr(u.lo, m0, lane);
-  const uint32_t vh = a_addr(v.hi, m0, lane), vl = a_addr(v.lo, m0, lane);
-  const uint32_t ph = b_addr<TRANS>(p.hi, n0, lane);
-  const uint32_t pl = b_addr<TRANS>(p.lo, n0, lane);
-  const uint32_t qh = b_addr<TRANS>(q.hi, n0, lane);
-  const uint32_t ql = b_addr<TRANS>(q.lo, n0, lane);
-  float up[4] = {}, vq[4] = {}, uq[4] = {}, vp[4] = {};
-  for (int k16 = 0; k16 < k16s; k16 += 2) {
-    float s_up[4] = {}, s_vq[4] = {}, s_uq[4] = {}, s_vp[4] = {};
-    uint32_t bph[4], bpl[4], bqh[4], bql[4];
-    ld_b<TRANS>(bph, ph + (k16 >> 1) * B_STEP);
-    ld_b<TRANS>(bpl, pl + (k16 >> 1) * B_STEP);
-    if (MODE != 0) {
-      ld_b<TRANS>(bqh, qh + (k16 >> 1) * B_STEP);
-      ld_b<TRANS>(bql, ql + (k16 >> 1) * B_STEP);
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (k16 + h < k16s) {
-        const uint32_t ka = (k16 + h) * 16 * 2;   // bytes along an A row
-        uint32_t auh[4], aul[4], avh[4], avl[4];
-        ldsm_x4(auh, uh + ka);
-        ldsm_x4(aul, ul + ka);
-        ldsm_x4(avh, vh + ka);
-        ldsm_x4(avl, vl + ka);
-        pass3(s_up, auh, aul, bph[2 * h], bph[2 * h + 1], bpl[2 * h],
-              bpl[2 * h + 1]);
-        if (MODE == 0) {
-          pass3(s_vp, avh, avl, bph[2 * h], bph[2 * h + 1], bpl[2 * h],
-                bpl[2 * h + 1]);
-        } else {
-          pass3(s_vq, avh, avl, bqh[2 * h], bqh[2 * h + 1], bql[2 * h],
-                bql[2 * h + 1]);
-          if (MODE == 1) {
-            pass3(s_uq, auh, aul, bqh[2 * h], bqh[2 * h + 1], bql[2 * h],
-                  bql[2 * h + 1]);
-            pass3(s_vp, avh, avl, bph[2 * h], bph[2 * h + 1], bpl[2 * h],
-                  bpl[2 * h + 1]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      up[e] = __fadd_rn(up[e], s_up[e]);
-      vq[e] = __fadd_rn(vq[e], s_vq[e]);
-      uq[e] = __fadd_rn(uq[e], s_uq[e]);
-      vp[e] = __fadd_rn(vp[e], s_vp[e]);
-    }
-  }
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    acc1[e] = MODE == 0 ? up[e] : __fsub_rn(up[e], vq[e]);
-    acc2[e] = MODE == 0 ? vp[e] : __fadd_rn(uq[e], vp[e]);
-  }
-}
-
-struct Smem {
-  Pair c, s;        // C, S: [CROWS][P], zeros past L
-  Pair x;           // the plane, [k][n]
-  Pair a, b;        // S1's A, B, [m][k]
-  Pair hr, hi;      // S2's H, [k][n]
-  Pair aa, bb;      // S3's a, b, [m][k]
-};
-
-// a tile pair's rows from row `off` on
-__device__ __forceinline__ Pair rows_from(const Pair& t, int off) {
-  return Pair{t.hi + off * P, t.lo + off * P};
-}
-
-// One 'same' convolution of the plane in s.x with the spectrum (g_r, g_i)
-// ([L][L] in device memory): the result back into s.x, or, when dst is not
-// null, into dst ([n][n] in device memory).
-__device__ void conv_same(const Smem& s, const float* __restrict__ g_r,
-                          const float* __restrict__ g_i,
-                          float* __restrict__ dst, int n, int L, int off) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n8 = (n + 7) / 8, n16 = (n + 15) / 16;
-  const int l8 = (L + 7) / 8, l16 = (L + 15) / 16;
-  // an accumulator fragment holds rows lane / 4 and + 8, columns
-  // 2 (lane % 4) and + 1 of its tile
-  const int fr = lane >> 2, fc = 2 * (lane & 3);
-  float acc1[4], acc2[4];
-  // S1: A = C[:, :n] X, B = S[:, :n] X (L x n), over k < n
-  for (int t = warp; t < l16 * n8; t += NWARP) {
-    const int m0 = t % l16 * 16, n0 = t / l16 * 8;
-    tile_mma<0, true>(s.c, s.s, m0, s.x, s.x, n0, n16, lane, acc1, acc2);
-    store_split(s.a, m0 + fr, n0 + fc, acc1[0], acc1[1]);
-    store_split(s.a, m0 + fr + 8, n0 + fc, acc1[2], acc1[3]);
-    store_split(s.b, m0 + fr, n0 + fc, acc2[0], acc2[1]);
-    store_split(s.b, m0 + fr + 8, n0 + fc, acc2[2], acc2[3]);
-  }
-  __syncthreads();
-  // S2: Fr = A C - B S, Fi = -(A S + B C) over k < n; H = F * G
-  for (int t = warp; t < l16 * l8; t += NWARP) {
-    const int m0 = t % l16 * 16, n0 = t / l16 * 8;
-    tile_mma<1, false>(s.a, s.b, m0, s.c, s.s, n0, n16, lane, acc1, acc2);
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = m0 + fr + 8 * half, c = n0 + fc;
-      float hr[2], hi[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const bool ok = r < L && c + j < L;
-        const float gr = ok ? __ldg(g_r + r * L + c + j) : 0.f;
-        const float gi = ok ? __ldg(g_i + r * L + c + j) : 0.f;
-        const float f_r = acc1[2 * half + j], f_i = -acc2[2 * half + j];
-        hr[j] = __fsub_rn(__fmul_rn(f_r, gr), __fmul_rn(f_i, gi));
-        hi[j] = __fadd_rn(__fmul_rn(f_r, gi), __fmul_rn(f_i, gr));
-      }
-      store_split(s.hr, r, c, hr[0], hr[1]);
-      store_split(s.hi, r, c, hi[0], hi[1]);
-    }
-  }
-  __syncthreads();
-  // S3: a = Cs Hr - Ss Hi, b = Cs Hi + Ss Hr (n x L) over k < L, with
-  // Cs, Ss the rows off.. of C, S
-  const Pair cs = rows_from(s.c, off), ss = rows_from(s.s, off);
-  for (int t = warp; t < n16 * l8; t += NWARP) {
-    const int m0 = t % n16 * 16, n0 = t / n16 * 8;
-    tile_mma<1, true>(cs, ss, m0, s.hr, s.hi, n0, l16, lane, acc1, acc2);
-    store_split(s.aa, m0 + fr, n0 + fc, acc1[0], acc1[1]);
-    store_split(s.aa, m0 + fr + 8, n0 + fc, acc1[2], acc1[3]);
-    store_split(s.bb, m0 + fr, n0 + fc, acc2[0], acc2[1]);
-    store_split(s.bb, m0 + fr + 8, n0 + fc, acc2[2], acc2[3]);
-  }
-  __syncthreads();
-  // S4: Y = (a Cs^T - b Ss^T) / L^2 (n x n) over k < L
-  const float inv_l2 = 1.0f / (float)(L * L);
-  for (int t = warp; t < n16 * n8; t += NWARP) {
-    const int m0 = t % n16 * 16, n0 = t / n16 * 8;
-    tile_mma<2, false>(s.aa, s.bb, m0, cs, ss, n0, l16, lane, acc1, acc2);
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = m0 + fr + 8 * half, c = n0 + fc;
-      const float y0 = __fmul_rn(acc1[2 * half], inv_l2);
-      const float y1 = __fmul_rn(acc1[2 * half + 1], inv_l2);
-      if (r >= n) continue;
-      if (dst != nullptr) {
-        if (c < n) dst[r * n + c] = y0;
-        if (c + 1 < n) dst[r * n + c + 1] = y1;
-      } else {
-        // the plane's padding stays zero
-        store_split(s.x, r, c, c < n ? y0 : 0.f, c + 1 < n ? y1 : 0.f);
-      }
-    }
-  }
-  __syncthreads();
-}
-
+// NKN = ceil(n / 16): the steps of 16 over the plane side
+template <int NKN>
 __global__ void __launch_bounds__(NT, 1)
 fused_conv_chain_tc_kernel(const float* __restrict__ planes,  // (B, nl, n, n)
                            const float* __restrict__ gtt_r,   // (B, L, L)
@@ -326,72 +492,90 @@ fused_conv_chain_tc_kernel(const float* __restrict__ planes,  // (B, nl, n, n)
                            const float* __restrict__ cmat,    // (L, L) C
                            const float* __restrict__ smat,    // (L, L) S
                            float* __restrict__ out,           // (B, nl, n, n)
-                           int nl, int n, int L, int off, int group) {
-  extern __shared__ __align__(128) unsigned char smem[];
+                           int B, int nl, int n, int L, int off) {
+  extern __shared__ __align__(1024) unsigned char smem[];
   __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(smem);
-  // 4 constant tiles, 14 operand tiles, then [2][n][n] floats: the plane
-  // double buffer
-  constexpr int N_BF16 = 4 * C_TILE + 14 * T_TILE;
-  auto ctile = [&](int i) { return tiles + i * C_TILE; };
-  auto ttile = [&](int i) { return tiles + 4 * C_TILE + i * T_TILE; };
-  const Smem s{{ctile(0), ctile(1)},  {ctile(2), ctile(3)},
-               {ttile(0), ttile(1)},  {ttile(2), ttile(3)},
-               {ttile(4), ttile(5)},  {ttile(6), ttile(7)},
-               {ttile(8), ttile(9)},  {ttile(10), ttile(11)},
-               {ttile(12), ttile(13)}};
-  float* xs = reinterpret_cast<float*>(tiles + N_BF16);
-  const int t = threadIdx.x;
-  const int b = blockIdx.y;
-  const int p0 = blockIdx.x * group;
-  const int p1 = min(nl, p0 + group);
+  constexpr int N_TILES = NCONST + WGS * NOWN;
+  const int t = threadIdx.x, wg = t >> 7, wt = t & 127;
+  const uint32_t base = smem_addr(tiles);
+  const int r0 = 16 * (wt >> 5) + ((wt & 31) >> 2), c0 = 2 * (wt & 3);
+  const Ctx cx{base, base + (NCONST + wg * NOWN) * TILE_B, 0, 0, r0, c0,
+               2 * at(c0, r0)};
+  const int bar = 1 + wg;
+  const int nn = n * n;
+  // this warpgroup's float32 plane double buffer
+  float* xs = reinterpret_cast<float*>(tiles + N_TILES * TILE) + wg * 2 * nn;
+  const int items = B * nl, stride = WGS * gridDim.x;
 
-  // the plane p into the float buffer buf
-  auto stage = [&](int buf, int p) {
-    const float* src = planes + ((size_t)b * nl + p) * n * n;
-    float* dst = xs + buf * n * n;
-    for (int q = t; q < n * n; q += NT) cp_async4(dst + q, src + q);
+  auto stage = [&](int buf, int item) {
+    const float* src = planes + (size_t)item * nn;
+    float* dst = xs + buf * nn;
+    for (int q = wt; q < nn; q += 128) cp_async4(dst + q, src + q);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
   };
-  if (p0 < p1) stage(0, p0);
+  int item = blockIdx.x + wg * gridDim.x;
+  if (item < items) stage(0, item);
 
-  // every tile zeroed (the padding of every operand), then C and S split
-  // into their parts, zeros past L
-  for (int q = t; q < N_BF16 / 8; q += NT)
+  // every tile zeroed (the padding of every operand), then C, S and the
+  // window slices Cw, Sw split into their parts
+  for (int q = t; q < N_TILES * TILE / 8; q += NT)
     reinterpret_cast<uint4*>(tiles)[q] = make_uint4(0, 0, 0, 0);
   __syncthreads();
-  for (int q = t; q < L * (L / 2 + (L & 1)); q += NT) {
-    const int half = L / 2 + (L & 1);
-    const int r = q / half, c = q % half * 2;
-    const bool two = c + 1 < L;
-    store_split(s.c, r, c, cmat[r * L + c], two ? cmat[r * L + c + 1] : 0.f);
-    store_split(s.s, r, c, smat[r * L + c], two ? smat[r * L + c + 1] : 0.f);
-  }
-
-  int buf = 0;
-  for (int p = p0; p < p1; ++p, buf ^= 1) {
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    __syncthreads();   // plane p landed; the other buffer and s.x are free
-    if (p + 1 < p1) stage(buf ^ 1, p + 1);
-    // the plane's n x n values into s.x (its padding stays zero)
-    const float* x = xs + buf * n * n;
-    const int half = n / 2 + (n & 1);
-    for (int q = t; q < n * half; q += NT) {
-      const int r = q / half, c = q % half * 2;
-      store_split(s.x, r, c, x[r * n + c], c + 1 < n ? x[r * n + c + 1] : 0.f);
+  for (int q = t; q < L * L; q += NT) {
+    const int r = q / L, k = q % L;
+    const bool win = r >= off && r < off + n;
+    store_split(pair(base, T_C), 2 * at(r, k), cmat[q]);
+    store_split(pair(base, T_S), 2 * at(r, k), smat[q]);
+    if (win) {
+      store_split(pair(base, T_CW), 2 * at(r - off, k), cmat[q]);
+      store_split(pair(base, T_SW), 2 * at(r - off, k), smat[q]);
     }
-    __syncthreads();
-    const size_t gt = (size_t)b * L * L, gp = (size_t)p * L * L;
-    conv_same(s, gtt_r + gt, gtt_i + gt, nullptr, n, L, off);
-    conv_same(s, gi_r + gp, gi_i + gp, out + ((size_t)b * nl + p) * n * n, n,
-              L, off);
   }
+  fence_async_shared();
+  __syncthreads();
+
+  const Pair x_t = pair(cx.own, O_X);
+  for (int buf = 0; item < items; item += stride, buf ^= 1) {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    warpgroup_bar(bar);   // the plane landed; the other buffer is free
+    if (item + stride < items) stage(buf ^ 1, item + stride);
+    // the plane into the X tiles ([N][K]: row = column of X, k = its row)
+    const float* x = xs + buf * nn;
+    for (int q = wt; q < nn; q += 128) {
+      const int r = q / n, c = q % n;
+      store_split(x_t, 2 * at(c, r), x[q]);
+    }
+    fence_async_shared();
+    warpgroup_bar(bar);
+    const int b = item / nl, p = item % nl;
+    const size_t gt = (size_t)b * L * L, gp = (size_t)p * L * L;
+    conv_same<NKN>(cx, gtt_r + gt, gtt_i + gt, nullptr, n, L, bar);
+    conv_same<NKN>(cx, gi_r + gp, gi_i + gp, out + (size_t)item * nn, n, L,
+                   bar);
+  }
+}
+
+template <int NKN>
+cudaError_t launch(const float* planes, const float* gtt_r,
+                   const float* gtt_i, const float* gi_r, const float* gi_i,
+                   const float* cmat, const float* smat, float* out, int B,
+                   int nl, int n, int L, int off, int blocks, int smem,
+                   cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_conv_chain_tc_kernel<NKN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  fused_conv_chain_tc_kernel<NKN><<<blocks, NT, smem, stream>>>(
+      planes, gtt_r, gtt_i, gi_r, gi_i, cmat, smat, out, B, nl, n, L, off);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches K2 at "high" on `stream`: out (B, nl, n, n) from the planes, the
 // rows' tip-tilt spectra, the planes' intrinsic spectra and the (L, L) DFT
-// matrices C, S in float32, for n, L <= 64 and off + n <= L; returns the
+// matrices C, S in float32, for n, L <= 64 and off + n <= L, on a persistent
+// grid of `blocks` blocks (ops/conv_dft.py:tc_launch_plan); returns the
 // first CUDA error (0 = launched).
 extern "C" int muse_fused_conv_chain_tc(const float* planes,
                                         const float* gtt_r,
@@ -399,30 +583,17 @@ extern "C" int muse_fused_conv_chain_tc(const float* planes,
                                         const float* gi_i, const float* cmat,
                                         const float* smat, float* out, int B,
                                         int nl, int n, int L, int off,
-                                        void* stream) {
+                                        int blocks, void* stream) {
   if (n < 1 || L > MAXL || n > L || off < 0 || off + n > L || B < 1 ||
-      nl < 1)
+      nl < 1 || blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = (4 * C_TILE + 14 * T_TILE) * 2 + 2 * n * n * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_conv_chain_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, fused_conv_chain_tc_kernel, NT, smem)) != cudaSuccess)
-    return static_cast<int>(err);
-  // the fewest planes per block that keep every block of the grid
-  // resident at once: C and S are staged and split once per block
-  const int groups = max(1, min(nl, max(1, per_sm) * sms / B));
-  const int group = (nl + groups - 1) / groups;
-  const dim3 grid((nl + group - 1) / group, B);
-  fused_conv_chain_tc_kernel<<<grid, NT, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-      planes, gtt_r, gtt_i, gi_r, gi_i, cmat, smat, out, nl, n, L, off,
-      group);
-  return static_cast<int>(cudaGetLastError());
+  const int smem = (NCONST + WGS * NOWN) * TILE_B + WGS * 2 * n * n * 4;
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t (*go)(const float*, const float*, const float*, const float*,
+                    const float*, const float*, const float*, float*, int,
+                    int, int, int, int, int, int, cudaStream_t) =
+      n <= 16 ? launch<1> : n <= 32 ? launch<2> : n <= 48 ? launch<3>
+                                                          : launch<4>;
+  return static_cast<int>(go(planes, gtt_r, gtt_i, gi_r, gi_i, cmat, smat,
+                             out, B, nl, n, L, off, blocks, smem, s));
 }

@@ -46,7 +46,8 @@ KERNELS = {"zoom_dft": ("zoom_dft", "LAUNCHES"),
 
 _LOCK = threading.Lock()
 _LIB = None
-#: ptxas report (registers, shared memory, spills) of the last build
+#: ptxas report (registers, shared memory, spills) of the loaded library's
+#: build, kept beside it
 BUILD_LOG = ""
 
 _P = ctypes.c_void_p
@@ -70,7 +71,8 @@ _SIGNATURES = {
     + [_I] * 8 + [_P],
     # planes, gtt_r, gtt_i, gi_r, gi_i, C, S, out, B, nl, n, L, off, stream
     "muse_fused_conv_chain": [_P] * 8 + [_I] * 5 + [_P],
-    "muse_fused_conv_chain_tc": [_P] * 8 + [_I] * 5 + [_P],
+    # the same with the persistent grid's blocks before the stream
+    "muse_fused_conv_chain_tc": [_P] * 8 + [_I] * 6 + [_P],
 }
 
 
@@ -125,10 +127,12 @@ def library() -> ctypes.CDLL:
             if proc.returncode:
                 raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                    f"{proc.stdout}{proc.stderr}")
-            BUILD_LOG = "".join(logs)
+            so.with_suffix(".log").write_text("".join(logs))
             os.replace(tmp, so)
             for o in objs:
                 o.unlink()
+        log = so.with_suffix(".log")
+        BUILD_LOG = log.read_text() if log.exists() else ""
         lib = ctypes.CDLL(str(so))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

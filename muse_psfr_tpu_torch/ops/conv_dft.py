@@ -19,8 +19,10 @@ matrices C and S, of which the six trimmed matrices are sub-blocks.
 (``csrc/conv_dft.cu``) contracts in register-tiled float32 FMAs; "high"
 (``csrc/conv_dft_tc.cu``) runs every contraction as the 3-pass bf16 split
 ``a_hi@b_hi + a_hi@b_lo + a_lo@b_hi`` with float32 accumulation on the
-tensor cores, both operands split inside the kernel and every
-intermediate kept in float32 between the products.  Anything else raises.
+tensor cores (warpgroup products, two planes in flight a block on a
+persistent grid, :func:`tc_launch_plan`), both operands split inside the
+kernel and every intermediate kept in float32 between the products.
+Anything else raises.
 For CPU tensors it runs :func:`fused_conv_chain_reference`, the same
 operations in plain PyTorch.  The kernel spectra come from
 ``otf/convolve.py:_dft_spectra``.
@@ -45,6 +47,15 @@ CONV_PRECISIONS = ("highest", "high")
 
 #: largest plane side and transform size the kernel takes
 MAX_SIZE = 64
+
+
+def tc_launch_plan(B, nl, sms):
+    """Blocks of the tensor-core body's persistent grid for ``B`` rows x
+    ``nl`` planes on a card of ``sms`` SMs: one block per SM (its shared
+    memory admits one), fewer only when there are fewer (row, plane)
+    items than SMs.  Each block stages and splits C and S once; its two
+    warpgroups walk the flattened items (``csrc/conv_dft_tc.cu``)."""
+    return max(1, min(sms, B * nl))
 
 
 def _trimmed_mats(L: int, n: int, off: int):
@@ -152,13 +163,17 @@ def fused_conv_chain(planes, gtt_r, gtt_i, gi_r, gi_i, n_ker,
     c, s = _dft_mats(L, planes.device, torch.float32)
     out = torch.empty_like(planes)
     lib = _build.library()
-    launch = (lib.muse_fused_conv_chain_tc if precision == "high"
-              else lib.muse_fused_conv_chain)
-    err = launch(
-        planes.data_ptr(), gtt_r.data_ptr(), gtt_i.data_ptr(),
-        gi_r.data_ptr(), gi_i.data_ptr(), c.data_ptr(), s.data_ptr(),
-        out.data_ptr(), B, nl, n, L, (n_ker - 1) // 2,
-        torch.cuda.current_stream(planes.device).cuda_stream)
+    ptrs = (planes.data_ptr(), gtt_r.data_ptr(), gtt_i.data_ptr(),
+            gi_r.data_ptr(), gi_i.data_ptr(), c.data_ptr(), s.data_ptr(),
+            out.data_ptr(), B, nl, n, L, (n_ker - 1) // 2)
+    stream = torch.cuda.current_stream(planes.device).cuda_stream
+    if precision == "high":
+        sms = torch.cuda.get_device_properties(
+            planes.device).multi_processor_count
+        err = lib.muse_fused_conv_chain_tc(
+            *ptrs, tc_launch_plan(B, nl, sms), stream)
+    else:
+        err = lib.muse_fused_conv_chain(*ptrs, stream)
     _build.check_launch(err, f"fused_conv_chain at {precision}")
     if precision == "high":
         TC_LAUNCHES += 1

@@ -4,9 +4,10 @@ on the tensor cores against a float32 matmul per 32-row step, <= 2e-6 of
 max|U|; K3 against K1 <= 2e-6, and bit-identical on a rerun) and at "high"
 (three passes against their 3-pass plain versions, <= 2e-6: the same bf16
 products summed in another order; against "highest" <= 2e-5), K2 <= 1e-6,
-K2 at "high" (the tensor-core body, <= 3e-5 of max|out| from its plain
-version: the tier's own distance from float64 is 1e-5, see
-``test_conv_high_kernel_matches_plain``), K1 on a strided structure
+K2 at "high" (the wgmma tensor-core body, <= 3e-5 of max|out| from its
+plain version: the tier's own distance from float64 is 1e-5, see
+``test_conv_high_kernel_matches_plain``; the same bit for bit on any
+grid), K1 on a strided structure
 function, the batch night through the kernels (also over a two-shard
 mesh on one card), the nights at a lower
 ``conv_precision``/``matmul_precision`` and the float64 compat layer on
@@ -391,10 +392,12 @@ def test_anchored_night_runs_k6(dev):
 
 @pytest.mark.parametrize("B,nl,n,nk", [(2, 3, 8, 9), (3, 2, 9, 9),
                                        (1, 5, 24, 25), (3, 35, 40, 41),
-                                       (2, 4, 64, 1)])
+                                       (2, 4, 64, 1), (10, 35, 40, 41)])
 def test_conv_high_kernel_matches_plain(dev, B, nl, n, nk):
-    """K2 at "high" on its own counter, odd and padded plane sides, up to
-    the largest transform.  The kernel and the plain version form the same
+    """K2 at "high" (the wgmma body) on its own counter, odd and padded
+    plane sides, up to the largest transform, and with more planes than
+    the persistent grid has warpgroups (10 x 35), so that each walks
+    several.  The kernel and the plain version form the same
     three exact products per step and sum them in different float32 orders
     (an mma truncates inside its sum); every intermediate is split anew,
     and a split moves by up to 2^-17 of an operand that moved by one
@@ -428,6 +431,32 @@ def test_conv_high_kernel_matches_plain(dev, B, nl, n, nk):
     with pytest.raises(ValueError):
         conv_dft.fused_conv_chain(planes.double(), *spectra, nk,
                                   precision="high")
+
+
+def test_conv_high_kernel_is_the_same_on_any_grid(dev):
+    """Each (row, plane) is computed by one warpgroup alone, in a fixed
+    order of sums: one block walking all 70 items gives what the launch
+    plan's grid gives, bit for bit.  The package's library has no entry
+    point of the mma.sync body."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    B, nl, n, nk = 2, 35, 40, 41
+    L = _same_fft_size(n, nk)
+    from muse_psfr_tpu_torch.otf.convolve import _dft_mats, _dft_spectra
+    planes = torch.rand((B, nl, n, n), generator=g).to(dev)
+    spectra = [x.contiguous() for k in (torch.rand((B, nk, nk), generator=g),
+                                        torch.rand((nl, nk, nk), generator=g))
+               for x in _dft_spectra(k.to(dev), L)]
+    want = conv_dft.fused_conv_chain(planes, *spectra, nk, precision="high")
+    c, s = _dft_mats(L, dev, torch.float32)
+    lib = _build.library()
+    for blocks in (1, 7):
+        out = torch.empty_like(planes)
+        err = lib.muse_fused_conv_chain_tc(
+            *(x.data_ptr() for x in (planes, *spectra, c, s, out)), B, nl, n,
+            L, (nk - 1) // 2, blocks, torch.cuda.current_stream().cuda_stream)
+        assert err == 0
+        assert torch.equal(out, want)
+    assert not hasattr(lib, "muse_fused_conv_chain_tc_mma")
 
 
 def test_night_at_conv_high_runs_only_the_tensor_core_k2(dev):

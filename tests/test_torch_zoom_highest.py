@@ -283,3 +283,28 @@ def test_every_entry_point_is_built_once_from_the_package_sources():
     headers = {p.name for p in _build.headers()}
     for s in text.values():
         assert set(re.findall(r'#include "([^"]+)"', s)) <= headers
+
+
+def test_k2_high_runs_wgmma_and_the_mma_sync_body_is_a_tool_only():
+    """K2 at "high" contracts with warpgroup products (wgmma.mma_async,
+    written in the hashed header wgmma_common.cuh) and no longer with
+    mma.sync or ldmatrix; the mma.sync body it replaced lives under
+    tools/mma_sync_bodies/ with its own entry point, which no source of
+    the package defines."""
+    text = {p.name: p.read_text() for p in _build.sources()}
+    headers = {p.name: p.read_text() for p in _build.headers()}
+    tc = text["conv_dft_tc.cu"]
+    assert re.findall(r'#include "([^"]+)"', tc) == ["wgmma_common.cuh"]
+    assert "wgmma.mma_async" in headers["wgmma_common.cuh"]
+    for call in ("wgmma_m64n32k16_ss(", "wgmma_m64n32k16_rs(",
+                 "wgmma_commit()", "wgmma_wait<0>()", "warpgroup_bar("):
+        assert call in tc, call
+    for old in ("mma_bf16(", "ldsm_x4"):
+        assert old not in tc, old
+    for s in list(text.values()) + list(headers.values()):
+        assert "muse_fused_conv_chain_tc_mma" not in s
+        assert set(re.findall(r'#include "([^"]+)"', s)) <= set(headers)
+    tool = _build.CSRC.parents[1] / "tools" / "mma_sync_bodies" / \
+        "conv_dft_tc_mma.cu"
+    assert 'extern "C" int muse_fused_conv_chain_tc_mma(' in tool.read_text()
+    assert "muse_fused_conv_chain_tc_mma" not in _build._SIGNATURES
