@@ -112,6 +112,29 @@ Phases (any failure raises, so the exit code is non-zero):
     relative), 1024 rows done in the sidecar, a ``resume=True`` call that
     launches nothing and returns the same arrays, the ``save_sweep`` round
     trip; wall time with and without the checkpoint, guard trips;
+16a. the port's ``examples/full_night.py`` at its defaults (the synthetic
+    100-row night, 35 wavelengths, the default config) as ``python3 -m
+    muse_psfr_tpu_torch.examples.full_night`` in a fresh process in a
+    temporary directory: exit 0, the ``wrote`` line, the five HDUs, and
+    PSF_MEAN against a direct ``compute_psf_from_sparta`` on the same
+    night in this process (<= 1e-6 relative); then its ``main`` in this
+    process, counted (K1 "high" launched, K2 not) and timed warm;
+16b. the port's ``examples/sensitivity_sweep.py`` at n = 16 (256 rows x 3
+    wavelengths) the same way, its figure drawn where matplotlib is
+    installed (else its compute step alone, and a line that says so):
+    ``sweep.fits`` against a direct ``condition_sweep`` (<= 1e-6
+    relative), a ``resume=True`` call over its finished checkpoint that
+    launches nothing, its compute step in this process, counted and timed
+    warm;
+16c. the port laid out as ``pip install`` lays it out (the modules of
+    ``pyproject.toml``'s package list and the files its package data
+    matches) in a temporary directory outside the checkout: ``python3 -m
+    muse_psfr_tpu_torch --values 1,0.7,25`` there in a fresh process
+    (``PYTHONPATH`` that directory alone, ``XDG_CACHE_HOME`` a temporary
+    directory) builds the kernels from the installed sources into the
+    cache, not the checkout's ``build/``, and logs the exact block; a
+    second run reuses the cache; the build time is the difference of the
+    two walls;
 17. K2 at ``conv_precision="high"`` (the wgmma tensor-core body,
     ``csrc/conv_dft_tc.cu``: every contraction of the chain as the 3-pass
     bf16 split) at 50 rows x 35 planes, L 64, against its plain version
@@ -166,7 +189,7 @@ Phases (any failure raises, so the exit code is non-zero):
     switch nights for K5 and K6, each at its night's precision, the
     ``conv_precision="high"`` night for K2's tensor-core body; every one
     must be > 0; ``user_layer_launches`` on K1 and K3 "high" and on both
-    K2 bodies gives their counts on the paths of phases 13-16, K2's all
+    K2 bodies gives their counts on the paths of phases 13-16b, K2's all
     0; ``mesh_launches`` on K1 "high" and K2 their counts on the mesh
     nights of phase 21, per rank for the two ranks) and its
     bound (the larger of its bytes
@@ -185,9 +208,12 @@ may launch a kernel of the other precision, nor a K2 body of the other
 Imports nothing of JAX.
 """
 
+import glob
+import importlib.util
 import json
 import logging
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -1790,6 +1816,216 @@ def sweep_path(cfg, card, guard_log, tmp):
     return counts
 
 
+def fresh_process(args, cwd, env=None):
+    """``python3 *args`` in a fresh process in ``cwd`` (the checkout on
+    ``PYTHONPATH`` unless ``env`` says otherwise): (stdout, wall s);
+    raises on a non-zero exit."""
+    env = env or dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if out.returncode:
+        raise RuntimeError(f"python3 {' '.join(args)} exited "
+                           f"{out.returncode}:\n{out.stdout[-2000:]}\n"
+                           f"{out.stderr[-6000:]}")
+    return out.stdout, wall
+
+
+def example_launches(counts, label, cfg):
+    print(f"{label}: launches {counts}")
+    if counts["zoom_dft_tc"] < 1 or counts["conv_dft"] != 0:
+        raise RuntimeError(f"{label}: K1 must run at high and K2 not at "
+                           f"all: {counts}")
+    no_disc_or_anchor(counts, label)
+    only_its_precision(counts, cfg.zoom_precision, label)
+
+
+def full_night_example(cfg, card, tmp):
+    """The port's ``full_night`` example in a fresh process and in this
+    one, against a direct ``compute_psf_from_sparta``."""
+    from muse_psfr_tpu_torch import compute_psf_from_sparta, fits_open
+    from muse_psfr_tpu_torch.examples import full_night
+    from muse_psfr_tpu_torch.ops import _build
+    if full_night.CFG != cfg:
+        raise RuntimeError(f"the example runs {full_night.CFG}, not {cfg}")
+    run, again = (os.path.join(tmp, d) for d in ("night", "night_again"))
+    os.makedirs(run)
+    os.makedirs(again)
+    module = "muse_psfr_tpu_torch.examples.full_night"
+    stdout, wall = fresh_process(["-m", module, "--device", "cuda"], run)
+    said = [ln for ln in stdout.splitlines() if not ln.startswith("[")]
+    print(f"python3 -m {module} --device cuda: exit 0 in {wall:.1f} s (a "
+          f"fresh process); it printed:\n  " + "\n  ".join(said))
+    if "wrote night_psf.fits" not in said:
+        raise RuntimeError("the example did not write night_psf.fits")
+    res = fits_open(os.path.join(run, "night_psf.fits"))
+    if [h.name for h in res] != RESULT_HDUS:
+        raise RuntimeError(f"HDUs {[h.name for h in res]}")
+    with ApiLog():
+        direct = compute_psf_from_sparta(full_night.synthetic_night(),
+                                         cfg=cfg, nl=35, device="cuda")
+    got, want = res["PSF_MEAN"].data, direct["PSF_MEAN"].data
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    print(f"night_psf.fits PSF_MEAN {got.shape}: relative max-abs {rel:.3e} "
+          f"from a direct compute_psf_from_sparta on the same night (limit "
+          f"1e-6); bit-equal: {np.array_equal(got, want)}")
+    if got.shape != (35, 40, 40) or not rel <= 1e-6:
+        raise RuntimeError(f"the example's night departs: {rel}")
+
+    cwd = os.getcwd()
+    _build.reset_launch_counts()
+    try:
+        os.chdir(again)
+        with ApiLog():
+            t0 = time.perf_counter()
+            full_night.main(["--device", "cuda"])
+            warm = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    counts = _build.launch_counts()
+    example_launches(counts, "full_night.main in process", cfg)
+    print(f"full_night walls: fresh process {wall:.4f} s, warm in process "
+          f"{warm:.4f} s ({card})")
+    return counts
+
+
+def sweep_example(cfg, card, tmp):
+    """The port's ``sensitivity_sweep`` example in a fresh process and in
+    this one, against a direct ``condition_sweep``; its resume."""
+    from muse_psfr_tpu_torch import condition_sweep, fits_open
+    from muse_psfr_tpu_torch.examples import sensitivity_sweep
+    from muse_psfr_tpu_torch.ops import _build
+    if sensitivity_sweep.CFG != cfg:
+        raise RuntimeError(f"the example runs {sensitivity_sweep.CFG}")
+    run, again = (os.path.join(tmp, d) for d in ("sweep16", "sweep_again"))
+    os.makedirs(run)
+    os.makedirs(again)
+    module = "muse_psfr_tpu_torch.examples.sensitivity_sweep"
+    plots = importlib.util.find_spec("matplotlib") is not None
+    args = (["-m", module, "16", "sweep.png", "--device", "cuda"] if plots
+            else ["-c", f"from {module} import sweep; sweep(16, 'cuda')"])
+    stdout, wall = fresh_process(args, run)
+    print(f"python3 {' '.join(args)}: exit 0 in {wall:.1f} s (a fresh "
+          f"process); it printed:\n  " + "\n  ".join(stdout.splitlines()))
+    if plots:
+        png = os.path.join(run, "sweep.png")
+        if not os.path.getsize(png):
+            raise RuntimeError("the example's figure is empty")
+        print(f"figure: sweep.png, {os.path.getsize(png)} bytes")
+    else:
+        print("figure not drawn: matplotlib is not installed on this "
+              "machine, so only the example's compute step ran")
+
+    sv, gv = np.linspace(0.6, 1.6, 16), np.linspace(0.3, 0.9, 16)
+    kw = dict(lbda=[500.0, 700.0, 900.0], cfg=cfg, device="cuda")
+    direct = condition_sweep(sv, gv, [25.0], **kw)
+    back = fits_open(os.path.join(run, "sweep.fits"))
+    for key in ("fwhm", "beta"):
+        got, want = back[key.upper()].data, direct[key]
+        rel = float(np.max(np.abs(got / want - 1)))
+        print(f"sweep.fits {key.upper()} {got.shape}: relative max "
+              f"{rel:.3e} from a direct condition_sweep (limit 1e-6); "
+              f"bit-equal: {np.array_equal(got, want)}")
+        if got.shape != (16, 16, 1, 3) or not rel <= 1e-6:
+            raise RuntimeError(f"the example's sweep departs: {key} {rel}")
+
+    _build.reset_launch_counts()
+    resumed = condition_sweep(sv, gv, [25.0], resume=True, checkpoint=(
+        os.path.join(run, "sweep_progress.npy")), **kw)
+    counts = _build.launch_counts()
+    print(f"resume=True over the example's checkpoint: launches {counts}")
+    if any(counts.values()) or not all(
+            np.array_equal(resumed[k], back[k.upper()].data)
+            for k in ("fwhm", "beta")):
+        raise RuntimeError("the resumed sweep recomputed or changed rows")
+
+    cwd = os.getcwd()
+    _build.reset_launch_counts()
+    try:
+        os.chdir(again)
+        t0 = time.perf_counter()
+        sensitivity_sweep.sweep(16, "cuda")
+        warm = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    counts = _build.launch_counts()
+    example_launches(counts, "sensitivity_sweep.sweep in process", cfg)
+    print(f"sensitivity_sweep walls: fresh process {wall:.4f} s, its "
+          f"compute step warm in process {warm:.4f} s ({card})")
+    return counts
+
+
+def installed_layout(dest):
+    """Copy the port as ``pip install`` lays it out into ``dest``: the
+    modules of ``pyproject.toml``'s package list and the files its package
+    data matches, nothing else of the checkout; the copied paths."""
+    import tomllib
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as fh:
+        tool = tomllib.load(fh)["tool"]["setuptools"]
+    files = [p for pkg in tool["packages"]
+             if pkg.split(".")[0] == "muse_psfr_tpu_torch"
+             for p in glob.glob(os.path.join(ROOT, *pkg.split("."), "*.py"))]
+    files += [p for pkg, patterns in tool["package-data"].items()
+              for pattern in patterns
+              for p in glob.glob(os.path.join(ROOT, *pkg.split("."),
+                                              pattern))]
+    rel = sorted(os.path.relpath(p, ROOT) for p in files)
+    for path in rel:
+        os.makedirs(os.path.join(dest, os.path.dirname(path)), exist_ok=True)
+        shutil.copy2(os.path.join(ROOT, path), os.path.join(dest, path))
+    return rel
+
+
+def built_libraries(path):
+    return {f: os.path.getmtime(os.path.join(path, f))
+            for f in (os.listdir(path) if os.path.isdir(path) else [])
+            if f.endswith(".so")}
+
+
+def installed_cli(card, tmp):
+    """The CLI of the port laid out as an install, outside the checkout:
+    the first fresh process builds the kernels from the installed sources
+    into ``$XDG_CACHE_HOME``, the second reuses them."""
+    from muse_psfr_tpu_torch.ops import _build
+    site, cache, run = (os.path.join(tmp, d) for d in ("site", "xdg_cache",
+                                                       "installed_run"))
+    files = installed_layout(site)
+    os.makedirs(run)
+    print(f"installed layout: {len(files)} files, csrc/ "
+          f"{sorted(os.path.basename(f) for f in files if '/csrc/' in f)}")
+    env = dict(os.environ, PYTHONPATH=site, XDG_CACHE_HOME=cache)
+    cached = os.path.join(cache, "muse_psfr_tpu_torch", "build")
+    checkout = built_libraries(_build.BUILD_DIR)
+    walls, libs = [], []
+    for k in range(2):
+        log = os.path.join(run, f"cli{k}.log")
+        stdout, wall = fresh_process(
+            ["-m", "muse_psfr_tpu_torch", "--values", "1,0.7,25",
+             "--no-color", "--logfile", log], run, env)
+        lines = read_lines(log)[2:]
+        walls.append(wall)
+        libs.append(built_libraries(cached))
+        print(f"installed python3 -m muse_psfr_tpu_torch --values 1,0.7,25 "
+              f"({'cold' if k == 0 else 'warm'} cache): exit 0 in "
+              f"{wall:.1f} s; cache {sorted(libs[-1])}; log:\n"
+              + "\n".join(lines))
+        if lines != CLI_LOG:
+            raise RuntimeError(f"the installed CLI's block {lines}")
+    name = os.path.basename(_build.library()._name)
+    if list(libs[0]) != [name] or libs[1] != libs[0]:
+        raise RuntimeError(f"the installed port did not build {name} once "
+                           f"into {cached}: {libs}")
+    if built_libraries(_build.BUILD_DIR) != checkout:
+        raise RuntimeError("the installed port wrote into the checkout's "
+                           f"{_build.BUILD_DIR}")
+    print(f"installed port: kernels built from the installed sources into "
+          f"$XDG_CACHE_HOME/muse_psfr_tpu_torch/build in "
+          f"{walls[0] - walls[1]:.1f} s (cold-cache wall {walls[0]:.1f} s "
+          f"minus warm {walls[1]:.1f} s); the checkout's build/ untouched "
+          f"({card})")
+
+
 def mesh_launches(counts, shards, label, fft_free=True):
     """K1 "high" (and K2 on an FFT-free night) launched on every shard:
     ``counts`` is this process's count over ``shards`` shards."""
@@ -2115,6 +2351,9 @@ def main(argv):
         user["sparta_file"] = sparta_file_path(user_cfg, rows, card, tmp)
         user["cli"] = real_cli(user_cfg, tmp)
         user["sweep"] = sweep_path(user_cfg, card, guard_log, tmp)
+        user["full_night"] = full_night_example(user_cfg, card, tmp)
+        user["sweep_example"] = sweep_example(user_cfg, card, tmp)
+        installed_cli(card, tmp)
     matmul_tier_nights(cfg, user_cfg, rows, card, night)
     compat_path(card)
     mesh = mesh_phase(torch, cfg, user_cfg, rows, card, guard_log, night9)

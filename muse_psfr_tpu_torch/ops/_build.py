@@ -3,9 +3,10 @@
 The kernels live in ``muse_psfr_tpu_torch/csrc/*.cu`` with a plain C
 interface.  :func:`library` compiles them on first use with ``nvcc`` for
 ``sm_90a``, one ``nvcc`` process per source, all started together, links
-the objects into one shared library under ``build/muse_psfr_tpu_torch/``
-(named by a hash of the sources, their headers and the flags, so an edit
-rebuilds) and loads
+the objects into one shared library under :data:`BUILD_DIR` (the
+checkout's ``build/muse_psfr_tpu_torch/``, or the user's cache for an
+installed package; named by a hash of the sources, their headers and the
+flags, so an edit rebuilds) and loads
 it with ``ctypes``.  Importing this module builds nothing: the CPU tests
 import every module on machines without ``nvcc``.
 
@@ -26,9 +27,24 @@ from pathlib import Path
 
 import torch
 
-CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
-    "muse_psfr_tpu_torch"
+PACKAGE = Path(__file__).resolve().parents[1]
+CSRC = PACKAGE / "csrc"
+
+
+def build_dir() -> Path:
+    """Where the kernels are built: ``<checkout>/build/muse_psfr_tpu_torch``
+    when the package sits in a source checkout (its ``pyproject.toml``
+    beside it), else the user's cache, ``$XDG_CACHE_HOME`` (default
+    ``~/.cache``) ``/muse_psfr_tpu_torch/build``: an installed package
+    never writes into ``site-packages``."""
+    if (PACKAGE.parent / "pyproject.toml").is_file():
+        return PACKAGE.parent / "build" / "muse_psfr_tpu_torch"
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+        os.path.expanduser("~"), ".cache")
+    return Path(cache) / "muse_psfr_tpu_torch" / "build"
+
+
+BUILD_DIR = build_dir()
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -138,7 +138,9 @@ def test_the_scan_covers_compat_and_the_new_modules():
             "muse_psfr_tpu_torch/psd/model.py",
             "muse_psfr_tpu_torch/core/grids.py",
             "muse_psfr_tpu_torch/parallel/mesh.py",
-            "muse_psfr_tpu_torch/parallel/multihost_demo.py"} <= rel
+            "muse_psfr_tpu_torch/parallel/multihost_demo.py",
+            "muse_psfr_tpu_torch/examples/full_night.py",
+            "muse_psfr_tpu_torch/examples/sensitivity_sweep.py"} <= rel
 
 
 def test_cuda_request_without_cuda_raises():
