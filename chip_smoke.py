@@ -6,6 +6,9 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py                     # the checks below, one card
     python3 chip_smoke.py --profile OUT.txt   # also a torch.profiler table
                                               # of one warmed night -> OUT
+                                              # (its chunk programs
+                                              # replayed; the same night
+                                              # run eagerly -> OUT-eager)
     python3 chip_smoke.py --profile-ndir9 OUT # the same for the
                                               # 9-direction night
     python3 chip_smoke.py --profile-anchor OUT  # and for it with
@@ -183,7 +186,31 @@ Phases (any failure raises, so the exit code is non-zero):
     ranks on the one card through gloo (NCCL refuses two ranks on a
     device), ``python -m muse_psfr_tpu_torch.parallel.multihost_demo``,
     ranks equal bit for bit, launches per rank, warmed walls;
-22. one JSON line of per-kernel results, each with its launches on the
+22. the chunk programs (``parallel/programs.py``: each chunk step and the
+    mean refit captured as a CUDA graph at its second dispatch, replayed
+    after; every earlier phase already ran through them) against the
+    eager step (``_graphs=False``): the FFT-free 1-direction night, the
+    same at the default config, at ``zoom_precision="highest"`` and at
+    ``conv_precision="high"``, the 9-direction night, anchored and with
+    the disc skip, and the 32 x 32 sweep's 1024 rows, each replayed
+    (nothing captured in that night) and equal to its eager night bit
+    for bit on the fits, the mean PSF and its fit, with the same launch
+    counts; the 1-direction night on a grid shifted by 2 nm (the same
+    plan, so the same programs, replayed with other wavelengths) against
+    its eager night; the forced redo of 12 through ``reconstruct_batch``
+    and ``process_batch``, three graph runs against one eager run; the
+    1-direction night over two shards on ``cuda:0``; the chunk loop of
+    the 1-direction night, replayed and eager, under
+    ``torch.cuda.set_sync_debug_mode("error")``; warmed walls in turns
+    (eager, graphs, graphs, eager; six of each: median, minimum, spread)
+    of the 1- and 9-direction nights, the default-config night and the
+    sweep's rows; host self time, device time and the device's idle
+    share under ``torch.profiler`` for one night of each, replayed and
+    eager, of the 1- and 9-direction nights, the anchored night and the
+    sweep's rows; every program's
+    capture time, ``max_memory_reserved`` before and after, replays and
+    launches per replay;
+23. one JSON line of per-kernel results, each with its launches on the
     path that runs it (the FFT-free default nights for the three-pass
     launches and K2, the "highest" nights for the six-pass launches, the
     switch nights for K5 and K6, each at its night's precision, the
@@ -2197,20 +2224,265 @@ def mesh_phase(torch, cfg, user_cfg, rows, card, guard_log, night9):
     return out
 
 
-def profile_night(torch, rows, night, path):
-    """torch.profiler table of one warmed night, printed and written to
-    ``path``."""
+def sweep_rows():
+    """The 32 x 32 x 1 sweep's 1024 rows, as ``condition_sweep`` hands
+    them to ``process_batch``."""
+    grid = np.meshgrid(np.linspace(0.6, 1.6, 32), np.linspace(0.3, 0.9, 32),
+                       [25.0], indexing="ij")
+    return [g.ravel() for g in grid] + [np.ones((1024, 4))]
+
+
+def counted_night(rows, night, **kw):
+    """``process_batch`` on ``rows``, its launch counts and the number of
+    programs it captured."""
+    from muse_psfr_tpu_torch.ops import _build
+    from muse_psfr_tpu_torch.parallel import programs
+    from muse_psfr_tpu_torch.parallel.batch import process_batch
+    n = len(programs.programs())
+    _build.reset_launch_counts()
+    out = process_batch(*rows, **dict(night, **kw))
+    return out, _build.launch_counts(), len(programs.programs()) - n
+
+
+def same_bits(label, got, want):
+    """Every array of ``got`` equal bit for bit to ``want``'s; else the
+    largest differences, printed, and a failure."""
+    equal = all(np.array_equal(g, w) for g, w in zip(got, want))
+    if not equal:
+        diffs = [float(np.abs(g.astype(np.float64) - w).max())
+                 for g, w in zip(got, want)]
+        raise RuntimeError(f"{label}: graphs and eager differ, max abs "
+                           f"{diffs}")
+
+
+def graph_against_eager(label, rows, night):
+    """The night with its programs replayed against the same night run
+    eagerly (``_graphs=False``): fits, mean PSF and its fit bit for bit,
+    launch counts equal, nothing captured in the replayed night (a night
+    that still captured a program is run again)."""
+    got, counts, captured = counted_night(rows, night)
+    if captured:
+        got, counts, captured = counted_night(rows, night)
+    want, want_counts, _ = counted_night(rows, night, _graphs=False)
+    same_bits(label, got, want)
+    print(f"graphs {label}: bit-equal to eager; launches {counts}; "
+          f"{captured} captured in the replayed night")
+    if counts != want_counts or captured:
+        raise RuntimeError(f"graphs {label}: launches {counts} against "
+                           f"eager {want_counts}, {captured} captured")
+    return counts
+
+
+def walls_in_turns(rows, night, warm, card, label):
+    """``warm`` warmed nights eager and with graphs, in turns (eager,
+    graphs, graphs, eager): median, minimum and spread (max - min)."""
+    from muse_psfr_tpu_torch.parallel.batch import process_batch
+    walls = {"eager": [], "graphs": []}
+    for _ in range(-(-warm // 2)):
+        for name in ("eager", "graphs", "graphs", "eager"):
+            t0 = time.perf_counter()
+            process_batch(*rows, **night, _graphs=name == "graphs")
+            walls[name].append(time.perf_counter() - t0)
+    out = {}
+    for name, w in walls.items():
+        med = float(np.median(w))
+        out[name] = dict(median=med, min=float(min(w)),
+                         spread=float(max(w) - min(w)), walls=w)
+        print(f"{label}, {name}, in turns x{len(w)}: wall "
+              f"{' '.join(f'{t:.4f}' for t in w)} s; median {med:.4f} s, "
+              f"min {min(w):.4f} s, spread {max(w) - min(w):.4f} s, "
+              f"{len(rows[0]) / med:.2f} rows/s ({card})")
+    ratio = out["eager"]["median"] / out["graphs"]["median"]
+    print(f"{label}: eager / graphs median {ratio:.3f}")
+    return out
+
+
+def profiled_shares(torch, rows, night, label, card, path=None):
+    """torch.profiler over one warmed night: host self time (and the ops
+    that hold most of it), device self time, the union of the device's
+    busy intervals and its idle share of the night's wall (under the
+    profiler); with ``path`` the profiler's table, printed and written
+    there."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from muse_psfr_tpu_torch.parallel.batch import process_batch
+    process_batch(*rows, **night)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         process_batch(*rows, **night)
-    table = prof.key_averages().table(sort_by="cuda_time_total",
-                                      row_limit=40)
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path, "w") as fh:
-        fh.write(table)
-    print(table)
+        wall = time.perf_counter() - t0
+    avg = prof.key_averages()
+    host = sum(e.self_cpu_time_total for e in avg) / 1e3
+    dev = sum(getattr(e, "self_device_time_total", 0) for e in avg) / 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, -np.inf
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    busy /= 1e3
+    idle = 1.0 - busy / (wall * 1e3)
+    top = sorted(avg, key=lambda e: -e.self_cpu_time_total)[:6]
+    print(f"profiled {label}: host self time {host:.3f} ms (most in "
+          + ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3:.3f} ms x"
+                      f"{e.count}" for e in top)
+          + f"), device self time {dev:.3f} ms, device busy {busy:.3f} ms "
+          f"in {len(spans)} device events over a wall of {wall * 1e3:.3f} "
+          f"ms: idle share {idle:.3f} ({card})")
+    if path:
+        table = avg.table(sort_by="cuda_time_total", row_limit=40)
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as fh:
+            fh.write(table)
+        print(table)
+    return dict(host_self_ms=host, device_self_ms=dev, device_busy_ms=busy,
+                wall_ms=wall * 1e3, idle_share=idle, events=len(spans))
+
+
+def chunk_loop_without_sync(torch, rows, night, label):
+    """The night's chunk loop (after its one telemetry copy, before its
+    one host copy) under ``torch.cuda.set_sync_debug_mode("error")``: a
+    synchronising call there raises."""
+    from muse_psfr_tpu_torch.parallel import batch
+    chunks = batch._chunks
+
+    def strict(*a, **k):
+        it = chunks(*a, **k)
+        first = next(it)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield first
+            yield from it
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    batch._chunks = strict
+    try:
+        batch.process_batch(*rows, **night)
+    finally:
+        batch._chunks = chunks
+    print(f"{label}: the chunk loop ran under set_sync_debug_mode(\"error\")"
+          " without a synchronising call")
+
+
+def graphs_phase(torch, cfg, user_cfg, top, rows, card, guard_log, night,
+                 night9):
+    """Phase 22: the chunk programs (``parallel/programs.py``) replayed as
+    CUDA graphs against the eager step (``_graphs=False``)."""
+    from muse_psfr_tpu_torch.parallel import programs
+    from muse_psfr_tpu_torch.parallel.batch import (process_batch,
+                                                    reconstruct_batch)
+    from muse_psfr_tpu_torch.parallel.mesh import default_mesh
+    sweep = sweep_rows()
+    sweep_night = dict(lbda=LBDA, cfg=user_cfg, chunk=64, device="cuda")
+    default1 = dict(night, cfg=user_cfg)
+    out = {"launches": {}}
+    t0 = time.perf_counter()
+
+    def lap(label):
+        print(f"  (phase 22: {label} in {time.perf_counter() - t0:.1f} s)")
+    for label, r, kw in [
+            ("1-direction night", rows, night),
+            ("1-direction night, default config", rows, default1),
+            ("9-direction night", rows, night9),
+            ("9-direction night, zoom_anchor=auto", rows,
+             dict(night9, cfg=cfg.with_(zoom_anchor="auto"))),
+            ("9-direction night, disc_skip", rows,
+             dict(night9, cfg=cfg.with_(disc_skip=True))),
+            ("1-direction night, zoom_precision=highest", rows,
+             dict(night, cfg=top)),
+            ("1-direction night, conv_precision=high", rows,
+             dict(night, cfg=cfg.with_(conv_precision="high"))),
+            ("32 x 32 sweep's rows", sweep, sweep_night)]:
+        out["launches"][label] = graph_against_eager(label, r, kw)
+    lap("the nights against eager")
+
+    # the wavelengths are values of a program, not part of it: a shifted
+    # grid of the same plan replays the same programs
+    shifted = dict(night, lbda=LBDA + 2.0)
+    got, counts, captured = counted_night(rows, shifted)
+    want, want_counts, _ = counted_night(rows, shifted, _graphs=False)
+    same_bits("shifted grid", got, want)
+    moved = float(np.abs(got[1] - process_batch(*rows, **night)[1]).max())
+    print(f"graphs, 1-direction night on 492-932 nm: bit-equal to eager, "
+          f"{captured} captured (its programs are the 490-930 nm "
+          f"night's), mean PSF {moved:.3e} from the 490-930 nm night's")
+    if captured or counts != want_counts or not moved > 0:
+        raise RuntimeError(f"the shifted night captured {captured} "
+                           f"programs or ran as the unshifted one")
+
+    # a forced guard trip: the pinned window's program, then the full
+    # window's, through reconstruct_batch ("recon") and process_batch
+    tel = ([0.2], [0.01], [30.0], np.ones((1, 4)))
+    pinned = dict(cfg=cfg.with_(otf_support=128), chunk=1, device="cuda")
+    for name, fn in (("reconstruct_batch", reconstruct_batch),
+                     ("process_batch", process_batch)):
+        runs = []
+        for graphs in (True, True, True, False):
+            guard_log.trips.clear()
+            res = fn(*tel, [930.0], **pinned, _graphs=graphs)
+            runs.append((res if name == "process_batch" else (res,),
+                         len(guard_log.trips)))
+        for res, trips in runs[:3]:
+            same_bits(f"forced redo through {name}", res, runs[3][0])
+        if not all(trips for _, trips in runs):
+            raise RuntimeError(f"forced redo through {name}: no trip")
+        print(f"graphs, forced redo through {name}: tripped in every run; "
+              "three graph runs bit-equal to the eager run")
+    lap("the shifted grid and the forced redo")
+
+    two = default_mesh(["cuda:0", "cuda:0"])
+    out["launches"]["two shards on cuda:0"] = graph_against_eager(
+        "1-direction night, two shards on cuda:0", rows,
+        dict(night, mesh=two))
+
+    chunk_loop_without_sync(torch, rows, night,
+                            "graphs, 1-direction night")
+    chunk_loop_without_sync(torch, rows, dict(night, _graphs=False),
+                            "eager, 1-direction night")
+    lap("the mesh and the chunk loops without a sync")
+
+    out["walls"] = {
+        "1-direction night": walls_in_turns(rows, night, 6, card,
+                                            "1-direction night"),
+        "9-direction night": walls_in_turns(rows, night9, 6, card,
+                                            "9-direction night"),
+        "1-direction night, default config": walls_in_turns(
+            rows, default1, 6, card, "1-direction night, default config"),
+        "32 x 32 sweep's rows": walls_in_turns(
+            sweep, sweep_night, 6, card, "32 x 32 sweep's rows")}
+    lap("the walls")
+    out["profile"] = {
+        mode: profiled_shares(torch, rows,
+                              dict(night, _graphs=mode == "graphs"),
+                              f"1-direction night, {mode}", card)
+        for mode in ("graphs", "eager")}
+    lap("the profiles")
+
+    progs = programs.programs()
+    for p in progs:
+        k = p.key
+        what = (f"{k[0]} {k[1]} {k[2]}" if k[0] == "mean" else
+                f"{k[0]} window {k[1].otf_support or 'full'} blue "
+                f"{k[1].otf_blue} split {k[1].use_dphi_split} anchor "
+                f"{k[1].zoom_anchor} disc {k[1].disc_skip} fft "
+                f"{k[1].use_fft} zoom {k[1].zoom_precision} conv "
+                f"{k[1].conv_precision} rows {k[2]} nl {k[3]} npsflin "
+                f"{k[7]}")
+        print(f"program {what} on {k[-1]}: captured in {p.capture_s:.3f} s; "
+              f"max_memory_reserved {p.reserved[0] / 2**30:.3f} -> "
+              f"{p.reserved[1] / 2**30:.3f} GiB, reserved after "
+              f"{p.reserved[2] / 2**30:.3f} GiB; {p.replays} replays; "
+              f"launches per replay "
+              f"{ {a: b for a, b in p.launches.items() if b} }")
+    total = sum(p.capture_s for p in progs)
+    print(f"{len(progs)} programs captured in {total:.3f} s in all; "
+          f"memory reserved now {torch.cuda.memory_reserved() / 2**30:.3f} "
+          f"GiB, at most {torch.cuda.max_memory_reserved() / 2**30:.3f} GiB "
+          f"({card})")
+    out["programs"] = dict(count=len(progs), capture_s=total)
+    return out
 
 
 def main(argv):
@@ -2249,6 +2521,11 @@ def main(argv):
     from muse_psfr_tpu_torch.utils.device import resolve_device
 
     t_start = time.perf_counter()
+
+    def stamp(label):
+        print(f"[{time.perf_counter() - t_start:.1f} s] {label}: done",
+              flush=True)
+
     card = card_line()
     print(f"card: {card}")
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -2324,9 +2601,11 @@ def main(argv):
           f"body; the package never launches it)")
     k2h = check_conv_high_kernel(torch, cfg, dev, rows, mma_sync)
     k5, k6, t5, t6 = check_disc_anchor_kernels(torch, cfg, dev, rows, old)
+    stamp("kernels against their plain versions (phases 2-7, 17)")
 
     counts, cli_counts, night, exact1 = main_path(torch, cfg, rows, card)
     counts_top, cli_top = highest_night(top, rows, card, exact1[0])
+    stamp("the 1-direction nights (phase 8)")
     counts9, night9, exact9 = ndir9_path(torch, cfg, rows, card, guard_log)
     counts9_top, exact9_top = ndir9_highest(top, rows, card, exact9)
     counts_disc = disc_night(cfg, rows, card, exact9)
@@ -2334,9 +2613,11 @@ def main(argv):
     counts_anchor = anchor_night(cfg, rows, card, guard_log, exact9)
     counts_anchor_top = anchor_night(top, rows, card, guard_log,
                                      exact9_top, warm=0, golden=False)
+    stamp("the 9-direction nights (phases 9-11)")
     forced_redo(cfg, guard_log)
     counts_conv_high = conv_high_nights(cfg, rows, card, night, night9,
                                         exact1, exact9)
+    stamp("the redo and the conv_precision=high nights (phases 12, 18)")
 
     # the user layer at the config a user gets (use_fft=True)
     user_cfg = GalacsiConfig()
@@ -2347,16 +2628,24 @@ def main(argv):
     user["night9"] = default_config_night(
         user_cfg, rows, card, guard_log, night9, exact9, "9-direction night",
         "golden_plan_night100_npsflin3.json", warm=3)
+    stamp("the default-config nights (phase 13)")
     with tempfile.TemporaryDirectory() as tmp:
         user["sparta_file"] = sparta_file_path(user_cfg, rows, card, tmp)
         user["cli"] = real_cli(user_cfg, tmp)
         user["sweep"] = sweep_path(user_cfg, card, guard_log, tmp)
+        stamp("the SPARTA file, the CLI and the sweep (phases 14-16)")
         user["full_night"] = full_night_example(user_cfg, card, tmp)
         user["sweep_example"] = sweep_example(user_cfg, card, tmp)
         installed_cli(card, tmp)
+    stamp("the examples and the installed layout (phases 16a-16c)")
     matmul_tier_nights(cfg, user_cfg, rows, card, night)
     compat_path(card)
+    stamp("the matmul tiers and compat (phases 19-20)")
     mesh = mesh_phase(torch, cfg, user_cfg, rows, card, guard_log, night9)
+    stamp("the meshes (phase 21)")
+    graphs_phase(torch, cfg, user_cfg, top, rows, card, guard_log, night,
+                 night9)
+    stamp("the chunk programs against the eager step (phase 22)")
     k1["launches"] = counts_top["zoom_dft"]
     k1_9["launches"] = counts9_top["zoom_dft"]
     k3["launches"] = k3_cli["launches"] = cli_top["zoom_dft_rowsplit"]
@@ -2384,27 +2673,26 @@ def main(argv):
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         raise RuntimeError(f"never launched on their paths: {idle}")
-    if args.profile:
-        profile_night(torch, rows, night, args.profile)
-    if args.profile_ndir9:
-        profile_night(torch, rows, night9, args.profile_ndir9)
-    if args.profile_anchor:
-        profile_night(torch, rows, dict(night9, cfg=cfg.with_(
-            zoom_anchor="auto")), args.profile_anchor)
-    if args.profile_default:
-        profile_night(torch, rows, dict(night, cfg=user_cfg),
-                      args.profile_default)
-    if args.profile_sweep:
-        grid = np.meshgrid(np.linspace(0.6, 1.6, 32),
-                           np.linspace(0.3, 0.9, 32), [25.0], indexing="ij")
-        profile_night(torch, [g.ravel() for g in grid] + [np.ones((1024, 4))],
-                      dict(lbda=LBDA, cfg=user_cfg, chunk=64, device="cuda"),
-                      args.profile_sweep)
-    if args.profile_highest:
-        profile_night(torch, rows, dict(night, cfg=top), args.profile_highest)
-    if args.profile_ndir9_highest:
-        profile_night(torch, rows, dict(night9, cfg=top),
-                      args.profile_ndir9_highest)
+    stamp("every phase")
+    flagged = [(args.profile, "1-direction night", rows, night),
+               (args.profile_ndir9, "9-direction night", rows, night9),
+               (args.profile_anchor, "9-direction night, zoom_anchor=auto",
+                rows, dict(night9, cfg=cfg.with_(zoom_anchor="auto"))),
+               (args.profile_default, "1-direction night, default config",
+                rows, dict(night, cfg=user_cfg)),
+               (args.profile_sweep, "32 x 32 sweep's rows", sweep_rows(),
+                dict(lbda=LBDA, cfg=user_cfg, chunk=64, device="cuda")),
+               (args.profile_highest, "1-direction night at highest", rows,
+                dict(night, cfg=top)),
+               (args.profile_ndir9_highest, "9-direction night at highest",
+                rows, dict(night9, cfg=top))]
+    for path, label, r, kw in flagged:
+        if path:
+            stem, ext = os.path.splitext(path)
+            for mode, out in (("graphs", path), ("eager", stem + "-eager"
+                                                 + ext)):
+                profiled_shares(torch, r, dict(kw, _graphs=mode == "graphs"),
+                                f"{label}, {mode}", card, out)
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

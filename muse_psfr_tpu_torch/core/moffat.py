@@ -8,6 +8,25 @@ PyTorch counterpart of ``muse_psfr_tpu/core/moffat.py``; replaces
 import numpy as np
 import torch
 
+from ..utils.device import host_const
+
+
+def _radius2(size: int):
+    """Squared distance of each pixel centre from the kernel's centre."""
+    c = (size - 1) / 2.0
+    y = (np.arange(size) - c)[:, None]
+    x = (np.arange(size) - c)[None, :]
+    return y * y + x * x
+
+
+def _on_device(v, like):
+    """``v`` (a tensor or a Python float) as a tensor of ``like``'s dtype
+    on its device; a float is filled there, never copied from the
+    host."""
+    if torch.is_tensor(v):
+        return v.to(like.dtype)
+    return torch.full((), v, dtype=like.dtype, device=like.device)
+
 
 def moffat_kernel(alpha, beta, size: int):
     """Discrete circular Moffat kernels, one per entry of ``alpha``.
@@ -21,13 +40,10 @@ def moffat_kernel(alpha, beta, size: int):
     feeds to ``fftconvolve`` (psfrec.py:917, 928).  The absolute PSF scale
     (flux/peak columns, PSF_MEAN values) depends on this; FWHM/beta do not.
     """
-    c = (size - 1) / 2.0
-    y = (np.arange(size) - c)[:, None]
-    x = (np.arange(size) - c)[None, :]
-    r2 = torch.as_tensor(y * y + x * x, dtype=alpha.dtype,
-                         device=alpha.device)
+    r2 = host_const(("moffat_r2", size), lambda: _radius2(size),
+                    alpha.device, alpha.dtype)
     a = alpha[:, None, None]
-    b = torch.as_tensor(beta, dtype=alpha.dtype, device=alpha.device)
+    b = _on_device(beta, alpha)
     if b.ndim:
         b = b[:, None, None]
     rr = r2 / (a * a)
@@ -36,8 +52,7 @@ def moffat_kernel(alpha, beta, size: int):
 
 def moffat_fwhm_to_alpha(fwhm, beta):
     """Moffat core width from FWHM: ``alpha = fwhm/(2 sqrt(2^(1/b)-1))``."""
-    k = torch.as_tensor(2.0 ** (1.0 / beta) - 1.0, dtype=fwhm.dtype,
-                        device=fwhm.device)
+    k = _on_device(2.0 ** (1.0 / beta) - 1.0, fwhm)
     return fwhm / (2.0 * torch.sqrt(k))
 
 

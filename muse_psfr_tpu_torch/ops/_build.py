@@ -13,7 +13,8 @@ import every module on machines without ``nvcc``.
 Each kernel keeps a plain integer counter on its module (:data:`KERNELS`),
 incremented by its wrapper right after a successful launch;
 :func:`launch_counts` and :func:`reset_launch_counts` read and clear them
-together.
+together, and :func:`add_launch_counts` adds the launches of a replayed
+CUDA graph, whose kernels no wrapper sees (``parallel/programs.py``).
 """
 
 import ctypes
@@ -200,3 +201,13 @@ def launch_counts() -> dict:
 def reset_launch_counts():
     for mod, attr in KERNELS.values():
         setattr(importlib.import_module(f"{__package__}.{mod}"), attr, 0)
+
+
+def add_launch_counts(delta: dict):
+    """Add ``delta`` {kernel: launches} to the counters."""
+    for k, n in delta.items():
+        if not n:
+            continue
+        mod, attr = KERNELS[k]
+        m = importlib.import_module(f"{__package__}.{mod}")
+        setattr(m, attr, getattr(m, attr) + n)

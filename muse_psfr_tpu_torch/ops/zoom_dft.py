@@ -380,6 +380,14 @@ def disc_live_rows(block_mask, n: int, ncols: int, tile_j: int = 128,
     return live
 
 
+def _live_table(block_mask, n, ncols, device):
+    """:func:`disc_live_rows` as an int32 device constant."""
+    mask = np.ascontiguousarray(block_mask, dtype=np.int32)
+    return host_const(("disc_live", mask.tobytes(), mask.shape, n, ncols),
+                      lambda: disc_live_rows(mask, n, ncols), device,
+                      torch.int32)
+
+
 def fused_exp_zoom_disc_reference(dphi, dl, a2, alpha, w, block_mask,
                                   exp2=False, row_splits=1,
                                   precision="highest"):
@@ -388,8 +396,7 @@ def fused_exp_zoom_disc_reference(dphi, dl, a2, alpha, w, block_mask,
     (:func:`disc_live_rows`), which is the restricted contraction the
     kernel and the JAX package's column groups compute."""
     n, ncols = dl.shape
-    live = torch.as_tensor(disc_live_rows(block_mask, n, ncols),
-                           device=dl.device)
+    live = _live_table(block_mask, n, ncols, dl.device)
     rows = torch.arange(n, device=dl.device)[:, None]
     tiles = live[torch.arange(ncols, device=dl.device) // N_TILE]
     keep = (rows >= tiles[:, 0]) & (rows < tiles[:, 1])  # (n, ncols)
@@ -413,10 +420,7 @@ def fused_exp_zoom_disc(dphi, dl, a2, alpha, w, block_mask, exp2=False,
                                              block_mask, exp2, row_splits,
                                              precision)
     n, ncols = dphi.shape[2], dphi.shape[3]
-    mask = np.ascontiguousarray(block_mask, dtype=np.int32)
-    live = host_const(("disc_live", mask.tobytes(), mask.shape, n, ncols),
-                      lambda: disc_live_rows(mask, n, ncols), dphi.device,
-                      torch.int32)
+    live = _live_table(block_mask, n, ncols, dphi.device)
     u = _launch("fused_exp_zoom_disc", dphi, dl, a2, alpha, w, exp2,
                 row_splits, precision, live)
     if precision == "high":

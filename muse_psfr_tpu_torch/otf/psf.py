@@ -152,6 +152,20 @@ def _fold_weights(dim: int, S: int, ncw: int):
     return v
 
 
+def _half_weights(nh: int):
+    """Column weights of the exact transform's fold onto columns
+    ``0..N/2``: 2, with 1 on the two self-paired columns."""
+    v = np.full(nh, 2.0)
+    v[0] = v[-1] = 1.0
+    return v
+
+
+def _fold_weights_on(dim: int, S: int, ncw: int, device, dtype):
+    """:func:`_fold_weights` as a device constant."""
+    return host_const(("fold", dim, S, ncw),
+                      lambda: _fold_weights(dim, S, ncw), device, dtype)
+
+
 def _window_bounds(cfg: GalacsiConfig):
     """(r_lo, r_hi, col_hi, S) of the computed OTF block."""
     win = cfg.otf_window
@@ -317,9 +331,8 @@ def dphi_base(psd, cfg: GalacsiConfig):
         # transform of the symmetrised PSD, whose contractions fold onto
         # columns 0..N/2 (the raw GLAO PSD is not f -> -f symmetric)
         nh = dim // 2 + 1
-        vh = np.full(nh, 2.0)
-        vh[0] = vh[-1] = 1.0
-        vh = torch.as_tensor(vh, dtype=dtype, device=dev)
+        vh = host_const(("fold_half", nh), lambda: _half_weights(nh), dev,
+                        dtype)
         xs = 0.5 * (x + torch.roll(torch.flip(x, dims=(-2, -1)), (1, 1),
                                    dims=(-2, -1)))
         xh = xs[..., :nh]
@@ -407,8 +420,7 @@ def _zoom_operands(base, lb_k, npix_k, cfg: GalacsiConfig):
     w = (1.0 / (ndir * norm)).contiguous()               # (B, k, ndir)
     ar2, ai2 = ar[..., r_lo:col_hi], ai[..., r_lo:col_hi]
     if cfg.otf_window is not None:
-        v = torch.as_tensor(_fold_weights(dim, S, base.shape[-1]),
-                            dtype=dtype, device=base.device)
+        v = _fold_weights_on(dim, S, base.shape[-1], base.device, dtype)
         ar2, ai2 = ar2 * v, ai2 * v
     return a2, alpha.contiguous(), w, ar2, ai2, t
 
@@ -527,12 +539,14 @@ def _anchor_operands(alpha, k: int, degree: int, norm: float):
     astar = torch.stack([0.5 * (torch.min(alpha[i:i + k])
                                 + torch.max(alpha[i:i + k]))
                          for i in range(0, nl, k)])
-    rho1 = alpha / torch.repeat_interleave(astar, k)[:nl] - 1.0
+    rho1 = alpha / astar[:, None].expand(-1, k).reshape(-1)[:nl] - 1.0
     cols = [torch.ones_like(rho1)]
     for _ in range(degree):
         cols.append(cols[-1] * rho1)
-    fact = torch.as_tensor([float(factorial(j)) for j in range(degree + 1)],
-                           dtype=alpha.dtype, device=alpha.device)
+    fact = host_const(("factorials", degree),
+                      lambda: [float(factorial(j))
+                               for j in range(degree + 1)],
+                      alpha.device, alpha.dtype)
     coef = torch.stack(cols, dim=1) / fact[None, :] / norm
     return astar.contiguous(), coef.contiguous()
 
@@ -628,8 +642,8 @@ def _psf_samples_zoom(mean_otf, i0, t, cfg: GalacsiConfig):
     u_r = mm(ar[..., r_lo:r_hi], mean_otf)               # (B, k, 2n, cols)
     u_i = mm(ai[..., r_lo:r_hi], mean_otf)
     if cfg.otf_window is not None:
-        v = torch.as_tensor(_fold_weights(dim, S, mean_otf.shape[-1]),
-                            dtype=dtype, device=mean_otf.device)
+        v = _fold_weights_on(dim, S, mean_otf.shape[-1], mean_otf.device,
+                             dtype)
         u_r, u_i = u_r * v, u_i * v
     p = (mm(u_r, ar[..., r_lo:col_hi].transpose(-1, -2))
          - mm(u_i, ai[..., r_lo:col_hi].transpose(-1, -2)))

@@ -32,10 +32,18 @@ mesh's devices: shard ``i`` runs :func:`_fit_chunk` on its slice, on its
 device, and the shards' results are gathered so that every process holds
 the whole chunk (:func:`_replicate_for_host`).  Chunks are then multiples
 of the mesh size and no group takes a tail chunk, as in the JAX package.
+
+Each chunk step (:func:`_fit_chunk`, :func:`_reconstruct_chunk`) and the
+mean refit run as programs (``parallel/programs.py``): on the card a
+program is captured as a CUDA graph at its second dispatch and replayed
+from then on, as the JAX package dispatches one compiled program per
+chunk; on the CPU they run eagerly.  A step takes tensors only (``n_valid``
+a 0-d int64 tensor on the device) and makes no host copy and no host
+sync, so that it can be captured.
 """
 
 import dataclasses
-from functools import reduce
+from functools import partial, reduce
 from itertools import combinations
 
 import numpy as np
@@ -53,6 +61,7 @@ from ..psd.model import (effective_wind_speed, seeing_to_r0, simulate_psd,
                          simulate_psd_split)
 from ..utils.device import resolve_device, torch_dtype
 from ..utils.log import get_logger
+from . import programs
 from .mesh import rows_sharding
 
 logger = get_logger("batch")
@@ -119,18 +128,43 @@ def reconstruct_rows(seeing, GL, L0, gs_mask, lbda, h, wind_speed,
             _window_guard(base, lbda, cfg))
 
 
-def _fit_chunk(t, n_valid, lbda, npixc, h, wind_speed, npsflin, cfg,
-               fit_dtype):
-    """One chunk: reconstruction + packed Moffat fit + pad-masked PSF sum
-    + the chunk's window guard (minimum over its rows).  ``t``: (chunk, 7)
-    telemetry [seeing, GL, L0, gs_mask(4)] on the device; the first
-    ``n_valid`` rows are real."""
+def _reconstruct_chunk(t, lbda, npixc, h, wind_speed, npsflin, cfg):
+    """One chunk's PSF cubes and its window guard (minimum over its
+    rows), the JAX package's function of the same name.  ``t``: (chunk,
+    7) telemetry [seeing, GL, L0, gs_mask(4)] on the device."""
     psf, guard = reconstruct_rows(t[:, 0], t[:, 1], t[:, 2], t[:, 3:7],
                                   lbda, h, wind_speed, npsflin, cfg,
                                   npixc=npixc)
+    return psf, torch.min(guard)
+
+
+def _fit_chunk(t, n_valid, lbda, npixc, h, wind_speed, npsflin, cfg,
+               fit_dtype):
+    """One chunk: reconstruction + packed Moffat fit + pad-masked PSF sum
+    + the chunk's window guard (minimum over its rows), the JAX package's
+    function of the same name.  ``t``: (chunk, 7) telemetry on the
+    device; ``n_valid``: 0-d int64 tensor, the number of real rows first
+    in ``t``.  The sum is the masked contraction of the JAX package, so
+    that no row count is a Python value of the step."""
+    psf, guard = _reconstruct_chunk(t, lbda, npixc, h, wind_speed, npsflin,
+                                    cfg)
     fit = fit_moffat_cube_packed(psf, dtype=fit_dtype)
-    psum = torch.sum(psf[:n_valid], dim=0)
-    return fit, psum, torch.min(guard)
+    w = (torch.arange(t.shape[0], device=t.device) < n_valid).to(psf.dtype)
+    return fit, torch.tensordot(w, psf, dims=1), guard
+
+
+def _program_key(kind, plan, gcfg, size, fit_dtype=None):
+    """The JAX package's key of a chunk executable (``_warm_programs``)."""
+    return (kind, gcfg, size, plan.lbda.size, gcfg.dtype, plan.h,
+            plan.wind_speed, plan.npsflin, fit_dtype)
+
+
+def _fit_mean(psf_mean, fit_dtype, graphs):
+    """The packed fit of the mean PSF as the program "mean"."""
+    key = ("mean", tuple(psf_mean.shape), str(psf_mean.dtype), fit_dtype)
+    return programs.run(
+        key, lambda x: (fit_moffat_cube_packed(x, dtype=fit_dtype),),
+        (psf_mean,), graphs)[0]
 
 
 # ---- host planning ------------------------------------------------------
@@ -696,14 +730,28 @@ def _chunks(plan: BatchPlan, dev, mesh=None):
     its real rows and ``shards`` one ``(t, n_valid, lbda, npixc)`` per
     shard this process runs, ``t`` the shard's (rows, 7) telemetry on its
     device (the chunk padded with repeats of the group's last row) and
-    ``n_valid`` how many of its rows are real.  Without a mesh the chunk
-    is one shard on ``dev``.  The whole night's padded telemetry goes to
-    each device in one copy."""
+    ``n_valid`` how many of its rows are real, a 0-d int64 tensor there.
+    Without a mesh the chunk is one shard on ``dev``.  The whole night's
+    padded telemetry and every shard's ``n_valid`` go to each device in
+    one copy each, before the first chunk."""
     dtype = torch_dtype(plan.cfg.dtype)
     tabs = [np.concatenate([plan.table[g.rows],
                             np.repeat(plan.table[g.rows[-1:]], g.n_pad,
                                       axis=0)]) for g in plan.groups]
     night_np = np.concatenate(tabs)
+    sched, base = [], 0       # (cfg, rows, [(device, row 0, rows, n_valid)])
+    for g in plan.groups:
+        for size, nval, off in zip(g.sizes, g.nvals, g.offs):
+            split = ([(dev, slice(0, size))] if mesh is None else
+                     [(d, sl) for _, d, sl
+                      in rows_sharding(mesh).local_slices(size)])
+            sched.append((g.cfg, g.rows[off:off + nval], [
+                (d, base + off + sl.start, sl.stop - sl.start,
+                 min(max(nval - sl.start, 0), sl.stop - sl.start))
+                for d, sl in split]))
+        base += sum(g.sizes)
+    nvals = np.array([s[3] for *_, shards in sched for s in shards],
+                     np.int64)
     placed = {}
     for d in ((dev,) if mesh is None else mesh.local):
         if d not in placed:
@@ -713,22 +761,16 @@ def _chunks(plan: BatchPlan, dev, mesh=None):
                          torch.tensor(np.array(plan.lbda), dtype=dtype,
                                       device=d),
                          torch.tensor(np.array(plan.npixc),
-                                      dtype=torch.int64, device=d))
-    base = 0
-    for g in plan.groups:
-        for size, nval, off in zip(g.sizes, g.nvals, g.offs):
-            split = ([(dev, slice(0, size))] if mesh is None else
-                     [(d, sl) for _, d, sl
-                      in rows_sharding(mesh).local_slices(size)])
-            shards = []
-            for d, sl in split:
-                night, lbda, npixc = placed[d]
-                lo = base + off + sl.start
-                shards.append((night[lo:lo + sl.stop - sl.start],
-                               min(max(nval - sl.start, 0),
-                                   sl.stop - sl.start), lbda, npixc))
-            yield g.cfg, g.rows[off:off + nval], shards
-        base += sum(g.sizes)
+                                      dtype=torch.int64, device=d),
+                         torch.as_tensor(nvals, device=d))
+    j = 0
+    for gcfg, rows, split in sched:
+        shards = []
+        for d, lo, n, _ in split:
+            night, lbda, npixc, nv = placed[d]
+            shards.append((night[lo:lo + n], nv[j], lbda, npixc))
+            j += 1
+        yield gcfg, rows, shards
 
 
 def _replicate_for_host(mesh, dev, local):
@@ -785,13 +827,15 @@ def _pull(*tensors):
 def reconstruct_batch(seeing, GL, L0, gs_mask, lbda, h=(100, 10000),
                       npsflin: int = 1, cfg: GalacsiConfig = None,
                       chunk: int = 8, device="cuda", _force_full=False,
-                      mesh=None):
+                      mesh=None, _graphs=True):
     """Reconstruct PSF cubes for a batch of work items: (B,)-shaped
     telemetry (``gs_mask`` (B, 4)) -> (B, nl, dimpsf, dimpsf) numpy.  The
     rows of chunks whose window guard trips are recomputed with the full
     window.  With ``mesh`` each chunk's rows are split over its devices
     (``device`` then only names their type) and every process returns
-    the whole batch."""
+    the whole batch.  Each chunk runs the program "recon"
+    (:func:`_reconstruct_chunk`, ``parallel/programs.py``);
+    ``_graphs=False`` runs it eagerly on the card too, for comparison."""
     dev = _night_device(device, mesh)
     seeing = np.atleast_1d(np.asarray(seeing, np.float64))
     GL = np.atleast_1d(np.asarray(GL, np.float64))
@@ -801,13 +845,12 @@ def reconstruct_batch(seeing, GL, L0, gs_mask, lbda, h=(100, 10000),
                       force_full=_force_full, device=dev, mesh=mesh)
     idxs, cubes, guards = [], [], []
     for gcfg, rows, shards in _chunks(plan, dev, mesh):
-        local = []
-        for t, _, lbda_d, npixc_d in shards:
-            psf, guard = reconstruct_rows(
-                t[:, 0], t[:, 1], t[:, 2], t[:, 3:7], lbda_d, plan.h,
-                plan.wind_speed, npsflin, gcfg, npixc=npixc_d)
-            local.append((psf, torch.min(guard)))
-        parts = _replicate_for_host(mesh, dev, local)
+        step = partial(_reconstruct_chunk, h=plan.h,
+                       wind_speed=plan.wind_speed, npsflin=npsflin, cfg=gcfg)
+        parts = _replicate_for_host(mesh, dev, [
+            programs.run(_program_key("recon", plan, gcfg, t.shape[0]),
+                         step, (t, lbda_d, npixc_d), _graphs)
+            for t, _, lbda_d, npixc_d in shards])
         idxs.append(rows)
         cubes.append(_cat([p[0] for p in parts])[:len(rows)])
         guards.append(reduce(torch.minimum, [p[1] for p in parts]))
@@ -821,7 +864,8 @@ def reconstruct_batch(seeing, GL, L0, gs_mask, lbda, h=(100, 10000),
             "%d rows with the full window", float(guard_np[i]), len(idx))
         out[idx] = reconstruct_batch(
             seeing[idx], GL[idx], L0[idx], gs_mask[idx], lbda, h, npsflin,
-            cfg, plan.chunk, device, _force_full=True, mesh=mesh)
+            cfg, plan.chunk, device, _force_full=True, mesh=mesh,
+            _graphs=_graphs)
     return out
 
 
@@ -829,7 +873,8 @@ def process_batch(seeing, GL, L0, gs_mask, lbda, h=(100, 10000),
                   npsflin: int = 1, cfg: GalacsiConfig = None,
                   chunk: int = 8, fit_dtype: str = None, device="cuda",
                   on_chunk=None, on_redo_start=None, on_final=None,
-                  _force_full=False, _return_parts=False, mesh=None):
+                  _force_full=False, _return_parts=False, mesh=None,
+                  _graphs=True):
     """Full batch: reconstruct, Moffat-fit and average on the device.
 
     Returns numpy ``(fit_packed, psf_mean, fit_mean_packed)``: per-row
@@ -868,6 +913,12 @@ def process_batch(seeing, GL, L0, gs_mask, lbda, h=(100, 10000),
     ``_return_parts`` (the redo, whose full window cannot trip): return
     the device tensors ``(fit in input order, psf_sum)`` without host
     copies.
+
+    Each chunk runs the program "fit" (:func:`_fit_chunk`) and the mean's
+    fit the program "mean" (``parallel/programs.py``): on the card each is
+    captured as a CUDA graph at its second dispatch and replayed from then
+    on; ``_graphs=False`` runs them eagerly on the card too, for
+    comparison.
     """
     dev = _night_device(device, mesh)
     cfg = cfg or GalacsiConfig()
@@ -883,9 +934,12 @@ def process_batch(seeing, GL, L0, gs_mask, lbda, h=(100, 10000),
     count = 0
     for gcfg, rows, shards in _chunks(plan, dev, mesh):
         n = len(rows)
+        step = partial(_fit_chunk, h=plan.h, wind_speed=plan.wind_speed,
+                       npsflin=npsflin, cfg=gcfg, fit_dtype=fit_dtype)
         parts = _replicate_for_host(mesh, dev, [
-            _fit_chunk(t, n_valid, lbda_d, npixc_d, plan.h, plan.wind_speed,
-                       npsflin, gcfg, fit_dtype)
+            programs.run(_program_key("fit", plan, gcfg, t.shape[0],
+                                      fit_dtype),
+                         step, (t, n_valid, lbda_d, npixc_d), _graphs)
             for t, n_valid, lbda_d, npixc_d in shards])
         fit = _cat([p[0] for p in parts])
         psum = reduce(torch.add, [p[1] for p in parts])     # shard order
@@ -910,7 +964,7 @@ def process_batch(seeing, GL, L0, gs_mask, lbda, h=(100, 10000),
     if _return_parts:
         return torch.cat(fits)[torch.as_tensor(inv, device=dev)], total_psum
     psf_mean = total_psum / count
-    fit_mean = fit_moffat_cube_packed(psf_mean, dtype=fit_dtype)
+    fit_mean = _fit_mean(psf_mean, fit_dtype, _graphs)
     pulled = _pull(torch.cat(fits), psf_mean, fit_mean, *guards)
     fit_np, psf_mean_np, fit_mean_np = pulled[:3]
     fit_np = fit_np[inv]
@@ -941,10 +995,10 @@ def process_batch(seeing, GL, L0, gs_mask, lbda, h=(100, 10000),
         seeing[redo_idx], GL[redo_idx], L0[redo_idx], gs_mask[redo_idx],
         lbda, h, npsflin, cfg, plan.chunk, fit_dtype, device,
         on_chunk=on_chunk_redo, _force_full=True, _return_parts=True,
-        mesh=mesh)
+        mesh=mesh, _graphs=_graphs)
     old_sub = torch.sum(torch.stack([psums[i] for i in tripped]), dim=0)
     psf_mean = (total_psum - old_sub + psum_redo) / count
-    fit_mean = fit_moffat_cube_packed(psf_mean, dtype=fit_dtype)
+    fit_mean = _fit_mean(psf_mean, fit_dtype, _graphs)
     fit_redo_np, psf_mean_np, fit_mean_np = _pull(fit_redo, psf_mean,
                                                   fit_mean)
     fit_np[redo_idx] = fit_redo_np

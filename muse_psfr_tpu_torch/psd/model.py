@@ -411,5 +411,6 @@ def simulate_psd_split(seeing, GL, L0, gs_mask, h, wind_speed, npsflin: int,
                         torch.cumprod(du[:, None].expand(
                             -1, len(binoms) - 1), dim=1)], dim=1)
     amp = nm2 * CST_VK_EXACT * r0ref ** (-5.0 / 3.0)
-    bin_t = torch.as_tensor(binoms, dtype=dtype, device=dev)
+    bin_t = host_const(("binoms", cfg.dphi_split_l0_min,
+                        cfg.dphi_split_degree), lambda: binoms, dev, dtype)
     return amp[:, None] * bin_t[None] * powers, delta

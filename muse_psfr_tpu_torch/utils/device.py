@@ -48,5 +48,9 @@ def host_const(key, make, device, dtype) -> torch.Tensor:
 
 
 def clear_device_consts():
-    """Drop every placed constant (after the host tables change)."""
+    """Drop every placed constant (after the host tables change), and the
+    captured chunk programs, which hold the addresses of those they
+    read."""
+    from ..parallel import programs
+    programs.clear()
     _DEVICE_CONSTS.clear()

@@ -9,7 +9,8 @@ plain version: the tier's own distance from float64 is 1e-5, see
 ``test_conv_high_kernel_matches_plain``; the same bit for bit on any
 grid), K1 on a strided structure
 function, the batch night through the kernels (also over a two-shard
-mesh on one card), the nights at a lower
+mesh on one card), a night of captured chunk programs bit-equal to the
+eager night, with the eager night's launches, the nights at a lower
 ``conv_precision``/``matmul_precision`` and the float64 compat layer on
 the card against the CPU.  Marked ``cuda``:
 skipped where no CUDA card is present (CUDA kernels have no CPU mode).
@@ -372,6 +373,38 @@ def test_two_shard_mesh_night_matches_the_single_device_night(dev):
     assert counts["zoom_dft_tc"] + counts["zoom_dft_tc_rowsplit"] >= 2
     for g, w, atol in zip(got, want, (1e-4, 1e-6, 1e-4)):
         assert np.abs(g - w).max() <= atol
+
+
+@pytest.mark.parametrize("use_fft", [False, True])
+def test_graph_night_is_bit_equal_to_the_eager_night(dev, use_fft):
+    """A dim-512 night with both support buckets, chunks of 2 rows: its
+    programs (``parallel/programs.py``) run eagerly at their first
+    dispatch, are captured at their second and replayed after; both graph
+    nights equal the eager night (``_graphs=False``) bit for bit, and a
+    night of replays counts the eager night's launches."""
+    from muse_psfr_tpu_torch.config import GalacsiConfig
+    from muse_psfr_tpu_torch.parallel import programs
+    from muse_psfr_tpu_torch.parallel.batch import process_batch
+    cfg = GalacsiConfig(dim=512, dim_pup=24, dimpsf=12, use_fft=use_fft)
+    tel = ([1.0, 0.2, 1.3, 0.25, 1.1, 0.22, 1.2, 0.3],
+           [0.7, 0.01, 0.5, 0.02, 0.6, 0.015, 0.65, 0.03],
+           [25.0, 30.0, 18.0, 29.0, 22.0, 28.0, 24.0, 27.0],
+           np.ones((8, 4)), [750.0, 930.0])
+    programs.clear()
+    _build.reset_launch_counts()
+    eager = process_batch(*tel, cfg=cfg, chunk=2, device="cuda",
+                          _graphs=False)
+    want = _build.launch_counts()
+    assert not programs._PROGRAMS
+    first = process_batch(*tel, cfg=cfg, chunk=2, device="cuda")
+    assert programs.programs()
+    _build.reset_launch_counts()
+    replayed = process_batch(*tel, cfg=cfg, chunk=2, device="cuda")
+    assert _build.launch_counts() == want
+    assert all(p.replays >= 1 for p in programs.programs())
+    for got in (first, replayed):
+        for g, w in zip(got, eager):
+            assert np.array_equal(g, w)
 
 
 def test_anchored_night_runs_k6(dev):
