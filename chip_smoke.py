@@ -210,7 +210,22 @@ Phases (any failure raises, so the exit code is non-zero):
     sweep's rows; every program's
     capture time, ``max_memory_reserved`` before and after, replays and
     launches per replay;
-23. one JSON line of per-kernel results, each with its launches on the
+23. the port's headline bench, ``bench_torch.py`` (the counterpart of
+    ``bench.py``), as a fresh ``python3 bench_torch.py`` process at its
+    defaults (the 100-row night at the default config, chunk 50, two
+    warm-up nights, 4 x 3 timed nights) and at ``BENCH_ROWS=1000``,
+    ``BENCH_BLOCKS=1``, ``BENCH_REPS=5`` (chunk 100): exit 0, every key
+    of ``bench.py``'s line plus ``median_s``, ``times_s`` and
+    ``launches_per_night``, ``rms_vs_f64_oracle`` <= 1e-5, ``row0_plan``
+    the golden plans' group of row 0, ``device`` the card's nvidia-smi
+    name, and one timed night's launches: K1 "high" as often as the
+    golden plan of the night says (one a chunk, two in a group that
+    splits the blue wavelengths off: 5 at 100 rows, 20 at 1000) and
+    nothing else; both lines printed with the card, the 100-row bench's
+    median over phase 22's replayed median of the same night, and that
+    night profiled in process as in 22 (``tools/profile_bench.py``
+    profiles it in a fresh process);
+24. one JSON line of per-kernel results, each with its launches on the
     path that runs it (the FFT-free default nights for the three-pass
     launches and K2, the "highest" nights for the six-pass launches, the
     switch nights for K5 and K6, each at its night's precision, the
@@ -218,8 +233,9 @@ Phases (any failure raises, so the exit code is non-zero):
     must be > 0; ``user_layer_launches`` on K1 and K3 "high" and on both
     K2 bodies gives their counts on the paths of phases 13-16b, K2's all
     0; ``mesh_launches`` on K1 "high" and K2 their counts on the mesh
-    nights of phase 21, per rank for the two ranks) and its
-    bound (the larger of its bytes
+    nights of phase 21, per rank for the two ranks; ``bench_launches`` on
+    K1 "high" its launches in one timed night of each bench of 23) and
+    its bound (the larger of its bytes
     over 3.35 TB/s and its operations, each over its unit's peak: fp32
     FLOPs over 67 TFLOP/s, bf16 tensor-core FLOPs (three or six passes)
     over 989 TFLOP/s, exponentials over the SFU's 16 a clock per SM), from
@@ -281,20 +297,6 @@ def card_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def build_rows(n):
-    """The bench night's telemetry (``bench.py:build_rows``): row 0
-    pinned to the golden condition, ~10% of rows in 3-laser mode."""
-    rng = np.random.default_rng(20260816)
-    seeing = rng.uniform(0.6, 1.6, n)
-    GL = rng.uniform(0.3, 0.9, n)
-    L0 = rng.uniform(9.0, 29.0, n)
-    mask = np.ones((n, 4))
-    mask[rng.random(n) < 0.1, 3] = 0.0
-    seeing[0], GL[0], L0[0] = 1.0, 0.7, 25.0
-    mask[0] = 1.0
-    return seeing, GL, L0, mask
 
 
 def cuda_ms(torch, fn, reps):
@@ -2485,6 +2487,96 @@ def graphs_phase(torch, cfg, user_cfg, top, rows, card, guard_log, night,
     return out
 
 
+#: the keys of ``bench.py``'s JSON line (:183-199), in its order, then the
+#: three that ``bench_torch.py`` adds
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "rows", "nl",
+              "elapsed_s", "rms_vs_f64_oracle", "row0_plan",
+              "block_minima_s", "block_spread", "vs_committed_calm_best",
+              "baseline_rows_per_sec", "device", "dtype", "median_s",
+              "times_s", "launches_per_night")
+
+
+def bench_run(label, env, card, golden):
+    """``python3 bench_torch.py`` in a fresh process with ``env`` added:
+    its JSON line, checked (keys, accuracy, row 0's plan, the card) and
+    printed with its warm-up line and the process's wall."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "bench_torch.py"], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=ROOT, **env),
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if out.returncode:
+        raise RuntimeError(f"bench_torch.py ({label}) exited "
+                           f"{out.returncode}:\n{out.stdout[-2000:]}\n"
+                           f"{out.stderr[-6000:]}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    for line in out.stderr.splitlines():
+        if line.startswith("# warm-up"):
+            print(f"bench {label}: {line[2:]}")
+    print(f"bench {label} ({card}; the process {wall:.1f} s): "
+          f"{json.dumps(res)}")
+    if list(res) != list(BENCH_KEYS):
+        raise RuntimeError(f"bench {label}: keys {list(res)}, expected "
+                           f"{list(BENCH_KEYS)}")
+    if not res["rms_vs_f64_oracle"] <= 1e-5:
+        raise RuntimeError(f"bench {label}: rms_vs_f64_oracle "
+                           f"{res['rms_vs_f64_oracle']} > 1e-5")
+    if res["row0_plan"] != golden:
+        raise RuntimeError(f"bench {label}: row0_plan {res['row0_plan']}, "
+                           f"the golden plan's {golden}")
+    if not res["device"].startswith(card.split(",")[0]):
+        raise RuntimeError(f"bench {label}: device {res['device']!r} is "
+                           f"not the card {card!r}")
+    return res
+
+
+def plan_launches(name):
+    """Row 0's group and the K1 launches of one night by the golden plan
+    ``name``: one a chunk, two in a group that splits the blue
+    wavelengths off (each segment is zoomed apart)."""
+    with open(os.path.join(DATA, name)) as fh:
+        groups = json.load(fh)["groups"]
+    row0 = next(g["cfg_delta"] for g in groups if 0 in g["rows"])
+    return row0, sum(len(g["sizes"]) * (2 if g["cfg_delta"].get("otf_blue")
+                                        else 1) for g in groups)
+
+
+def bench_phase(torch, rows, card, replayed_median):
+    """Phase 23: ``bench_torch.py`` at its defaults (the 100-row night)
+    and at 1000 rows, each in a fresh process, each night launching K1
+    "high" as often as its golden plan says and nothing else;
+    ``replayed_median`` is phase 22's replayed median of the 100-row
+    default-config night, which is then profiled here, in process, to
+    set beside ``tools/profile_bench.py``'s fresh process.  Returns K1
+    "high"'s launches in one timed night of each."""
+    from muse_psfr_tpu_torch.config import GalacsiConfig
+    torch.cuda.empty_cache()        # this process's unused cached blocks
+    out = {}
+    for label, env, name in (
+            ("100 rows", {}, "golden_plan_night100.json"),
+            ("1000 rows", dict(BENCH_ROWS="1000", BENCH_BLOCKS="1",
+                               BENCH_REPS="5"),
+             "golden_plan_night1000.json")):
+        golden, n_k1 = plan_launches(name)
+        res = bench_run(label, env, card, golden)
+        counts = res["launches_per_night"]
+        if {k: v for k, v in counts.items() if v} != {"zoom_dft_tc": n_k1}:
+            raise RuntimeError(f"bench {label}: one night must launch K1 "
+                               f"high {n_k1} times ({name}) and nothing "
+                               f"else: {counts}")
+        out[label] = counts["zoom_dft_tc"]
+        if label == "100 rows":
+            print(f"bench 100 rows: median {res['median_s']:.4f} s over "
+                  f"phase 22's replayed median {replayed_median:.4f} s of "
+                  f"the same night in process: "
+                  f"{res['median_s'] / replayed_median:.3f} ({card})")
+    profiled_shares(torch, rows, dict(lbda=LBDA, npsflin=1,
+                                      cfg=GalacsiConfig(), chunk=50,
+                                      device="cuda"),
+                    "the bench's 100-row night, replayed, in process", card)
+    return out
+
+
 def main(argv):
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2519,6 +2611,7 @@ def main(argv):
     from muse_psfr_tpu_torch.ops import _build
     from muse_psfr_tpu_torch.otf.psf import _zoom_row_splits
     from muse_psfr_tpu_torch.utils.device import resolve_device
+    from muse_psfr_tpu_torch.utils.telemetry import night_rows
 
     t_start = time.perf_counter()
 
@@ -2543,7 +2636,7 @@ def main(argv):
 
     cfg = GalacsiConfig(use_fft=False)          # zoom_precision "high"
     top = cfg.with_(zoom_precision="highest")
-    rows = build_rows(100)
+    rows = night_rows(100)
     t0 = time.perf_counter()
     old = fma_bodies()
     print(f"built the float32 FMA bodies of tools/fma_bodies/ in "
@@ -2643,9 +2736,12 @@ def main(argv):
     stamp("the matmul tiers and compat (phases 19-20)")
     mesh = mesh_phase(torch, cfg, user_cfg, rows, card, guard_log, night9)
     stamp("the meshes (phase 21)")
-    graphs_phase(torch, cfg, user_cfg, top, rows, card, guard_log, night,
-                 night9)
+    graphs = graphs_phase(torch, cfg, user_cfg, top, rows, card, guard_log,
+                          night, night9)
     stamp("the chunk programs against the eager step (phase 22)")
+    t1_bench = bench_phase(torch, rows, card, graphs["walls"][
+        "1-direction night, default config"]["graphs"]["median"])
+    stamp("the bench, bench_torch.py (phase 23)")
     k1["launches"] = counts_top["zoom_dft"]
     k1_9["launches"] = counts9_top["zoom_dft"]
     k3["launches"] = k3_cli["launches"] = cli_top["zoom_dft_rowsplit"]
@@ -2657,6 +2753,7 @@ def main(argv):
     k2h["launches_ndir9"] = \
         counts_conv_high["9-direction night"]["conv_dft_tc"]
     t1["launches"] = counts["zoom_dft_tc"]
+    t1["bench_launches"] = t1_bench
     t1_9["launches"] = counts9["zoom_dft_tc"]
     t3["launches"] = t3_cli["launches"] = cli_counts["zoom_dft_tc_rowsplit"]
     t5["launches"] = counts_disc["zoom_dft_tc_disc"]

@@ -32,23 +32,11 @@ import time
 
 import numpy as np
 
+from ..utils.telemetry import night_rows
+
 _MODULE = "muse_psfr_tpu_torch.parallel.multihost_demo"
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-
-
-def night_rows(n):
-    """The bench night's telemetry (``bench.py:build_rows``): row 0 pinned
-    to the golden condition, ~10% of rows in 3-laser mode."""
-    rng = np.random.default_rng(20260816)
-    seeing = rng.uniform(0.6, 1.6, n)
-    GL = rng.uniform(0.3, 0.9, n)
-    L0 = rng.uniform(9.0, 29.0, n)
-    mask = np.ones((n, 4))
-    mask[rng.random(n) < 0.1, 3] = 0.0
-    seeing[0], GL[0], L0[0] = 1.0, 0.7, 25.0
-    mask[0] = 1.0
-    return seeing, GL, L0, mask
 
 
 def night(device):

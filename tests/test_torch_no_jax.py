@@ -103,7 +103,8 @@ def test_cpu_nights_at_a_lower_tier_launch_nothing(cfg_kw):
 
 def _port_sources():
     pkg = os.path.join(ROOT, "muse_psfr_tpu_torch")
-    found = [os.path.join(ROOT, "chip_smoke.py")]
+    found = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "bench_torch.py")]
     for base, _, files in os.walk(pkg):
         found += [os.path.join(base, f) for f in files if f.endswith(".py")]
     return sorted(found)
@@ -112,9 +113,9 @@ def _port_sources():
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_source_names_no_jax_import(path):
-    """No module of the port, ``compat.py`` and ``chip_smoke.py`` included,
-    has an import statement of ``jax``, of the JAX package or of the
-    ``muse_psfr`` shim that is backed by it."""
+    """No module of the port, ``compat.py``, ``chip_smoke.py`` and
+    ``bench_torch.py`` included, has an import statement of ``jax``, of
+    the JAX package or of the ``muse_psfr`` shim that is backed by it."""
     import ast
     with open(path) as fh:
         tree = ast.parse(fh.read())
@@ -133,7 +134,8 @@ def test_source_names_no_jax_import(path):
 
 def test_the_scan_covers_compat_and_the_new_modules():
     rel = {os.path.relpath(p, ROOT) for p in _port_sources()}
-    assert {"chip_smoke.py", "muse_psfr_tpu_torch/compat.py",
+    assert {"chip_smoke.py", "bench_torch.py",
+            "muse_psfr_tpu_torch/compat.py",
             "muse_psfr_tpu_torch/ops/conv_dft.py",
             "muse_psfr_tpu_torch/psd/model.py",
             "muse_psfr_tpu_torch/core/grids.py",

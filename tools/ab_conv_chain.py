@@ -115,11 +115,12 @@ def main(argv):
     from muse_psfr_tpu_torch.config import GalacsiConfig
     from muse_psfr_tpu_torch.ops import conv_dft
     from muse_psfr_tpu_torch.utils.device import resolve_device
+    from muse_psfr_tpu_torch.utils.telemetry import night_rows
 
     print(cs.card_line())
     dev = resolve_device("cuda")
     cfg = GalacsiConfig(use_fft=False)
-    kargs, _, s64 = cs.conv_inputs(torch, cfg, dev, cs.build_rows(100))
+    kargs, _, s64 = cs.conv_inputs(torch, cfg, dev, night_rows(100))
     planes, nk = kargs[0], kargs[-1]
     B, nl, n, _ = planes.shape
     L = kargs[1].shape[-1]

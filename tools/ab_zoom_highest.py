@@ -120,6 +120,7 @@ def main(argv):
     from muse_psfr_tpu_torch.ops import _build
     from muse_psfr_tpu_torch.otf.psf import _zoom_row_splits
     from muse_psfr_tpu_torch.utils.device import resolve_device
+    from muse_psfr_tpu_torch.utils.telemetry import night_rows
 
     print(cs.card_line())
     dev = resolve_device("cuda")
@@ -129,7 +130,7 @@ def main(argv):
             print("  ptxas:", line.strip())
     old = FmaBodies(args.zoom, args.anchor)
     top = GalacsiConfig(use_fft=False, zoom_precision="highest")
-    rows = cs.build_rows(100)
+    rows = night_rows(100)
     cs.check_zoom_kernel(torch, top, dev, rows, 2, cs.LBDA[:12], old=old)
     cs.check_zoom_kernel(torch, top, dev, rows, 50, cs.LBDA, old=old,
                          f64=True)
