@@ -21,6 +21,9 @@ Run from the repository root on a machine with a CUDA card:
                                               # and for the 1- and the
                                               # 9-direction night at
                                               # zoom_precision="highest"
+    python3 chip_smoke.py --profile-2048 OUT  # and for the 1-direction
+                                              # night on the 2048^2 grid,
+                                              # FFT-free -> OUT-fft-free
 
 Phases (any failure raises, so the exit code is non-zero):
 
@@ -225,7 +228,48 @@ Phases (any failure raises, so the exit code is non-zero):
     median over phase 22's replayed median of the same night, and that
     night profiled in process as in 22 (``tools/profile_bench.py``
     profiles it in a fresh process);
-24. one JSON line of per-kernel results, each with its launches on the
+24. the 2048^2 grid (``GalacsiConfig(dim=2048)``, the JAX package's
+    high-resolution mode): (a) K1 "high" on one full-window chunk of the
+    2048 bench night's plan (25 rows x 35 wavelengths) at each window
+    shape of that plan, 2048 x 1152, 1024 x 640 and 512 x 384, against its
+    3-pass plain version (<= 2e-6 of max|U|), and K3 at the one-row call's
+    blue segment (1 row x 21 wavelengths on 512 x 384, R=2) against its
+    plain version and K1, each with its time, TFLOP/s, bound and the row
+    splits the main path takes there; (b) the 1-direction bench night
+    (chunk 25) at the default config and FFT-free: the plan equals
+    ``golden_plan_night100_dim2048.json``, the launches equal what the
+    plan says (three passes only; K2 once a chunk FFT-free), every chunk's
+    window and shape printed, fits finite and converged, the mean PSF
+    within 1e-5 relative and the per-row FWHM/beta within 1e-3 of the
+    same night on the full window, guard trips, replayed bit-equal to
+    eager, five warmed nights, the pinned row against
+    ``golden_psf_35l_s1.0_gl0.7_l025_dim2048.npy`` (rms <= 1e-5), and the
+    memory after the captures; (c) the 9-direction night (chunk 25,
+    ``golden_plan_night100_dim2048_npsflin3.json``) once at the default
+    config, checked the same way, with its memory; (d) ``compute_psf`` of
+    the pinned row at 35 wavelengths: K3 launched, the golden cube (rms
+    <= 1e-5), FWHM within 0.02 arcsec of the same call at dim 1280.  The
+    programs of earlier phases are dropped first (``programs.clear()``),
+    and again before (c);
+25. the exact structure-function group (rows with L0 < 2.5 m, which the
+    planner sends to ``simulate_psd`` over the full grid and
+    ``dphi_base``; its zoom contracts at "highest", six passes, whatever
+    ``zoom_precision`` says): (a) the bench night with L0 = 2.0 on rows 0,
+    10, ..., 90 (chunk 50) at the default config and FFT-free: the plan
+    equals ``golden_plan_night100_exact.json``, the exact group launches
+    the six-pass K1 once on the full window (1280 x 768), the rest as
+    the plan says, fits finite and converged, replayed bit-equal to
+    eager, three warmed nights, the pinned row (1.0, 0.7, 2.0) against
+    ``golden_psf_35l_s1.0_gl0.7_l02.0.npy`` (rms <= 1e-5), memory; (b)
+    ``compute_psf`` at L0 = 2.0 on the 2048^2 grid: finite, FWHM within
+    0.02 arcsec of dim 1280; (c) the 16 x 16 x 8 ``condition_sweep`` of
+    ``benchmarks/run_all.py:113-127`` (2048 points x 35 wavelengths,
+    chunk 64, the default config): launches as its plan says, every fit
+    finite, the grid point (1.0, 0.7, 2.0) against a one-row
+    ``compute_psf`` (<= 1e-3 relative), its rows replayed bit-equal to
+    eager, its first and a warmed wall.  The 2048^2 programs are dropped
+    first;
+26. one JSON line of per-kernel results, each with its launches on the
     path that runs it (the FFT-free default nights for the three-pass
     launches and K2, the "highest" nights for the six-pass launches, the
     switch nights for K5 and K6, each at its night's precision, the
@@ -234,8 +278,11 @@ Phases (any failure raises, so the exit code is non-zero):
     K2 bodies gives their counts on the paths of phases 13-16b, K2's all
     0; ``mesh_launches`` on K1 "high" and K2 their counts on the mesh
     nights of phase 21, per rank for the two ranks; ``bench_launches`` on
-    K1 "high" its launches in one timed night of each bench of 23) and
-    its bound (the larger of its bytes
+    K1 "high" its launches in one timed night of each bench of 23;
+    ``exact_group_launches`` on K1 at "highest" its launches on the
+    exact-row nights of 25a; the 2048^2 records of 24a their launches on
+    the default-config night of 24b at their shape, K3's on the call of
+    24d) and its bound (the larger of its bytes
     over 3.35 TB/s and its operations, each over its unit's peak: fp32
     FLOPs over 67 TFLOP/s, bf16 tensor-core FLOPs (three or six passes)
     over 989 TFLOP/s, exponentials over the SFU's 16 a clock per SM), from
@@ -246,11 +293,13 @@ Phases (any failure raises, so the exit code is non-zero):
 
 The default-config nights must launch neither K5 nor K6, and no night
 may launch a kernel of the other precision, nor a K2 body of the other
-``conv_precision``.
+``conv_precision``; the one exception is the exact group's K1, six
+passes at any ``zoom_precision`` (25).
 
 Imports nothing of JAX.
 """
 
+import contextlib
 import glob
 import importlib.util
 import json
@@ -268,6 +317,11 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "tests", "data")
 GOLDEN = os.path.join(DATA, "golden_psf_35l_s1.0_gl0.7_l025.npy")
+#: the same row on the 2048^2 grid, and at L0 = 2.0 m (the exact group)
+#: on the default grid (``tools/make_golden_psf.py``)
+GOLDEN_2048 = os.path.join(DATA,
+                           "golden_psf_35l_s1.0_gl0.7_l025_dim2048.npy")
+GOLDEN_EXACT = os.path.join(DATA, "golden_psf_35l_s1.0_gl0.7_l02.0.npy")
 CLI_BLOCK = ("FWHM 0.85 0.73 0.62", "BETA 2.73 2.55 2.23")
 CLI_LOG = ["-" * 68, "Sparta Seeing: 1.00 arcsec GL: 0.70 L0:25.00 m",
            "LBDA 5000 7000 9000", *CLI_BLOCK, "-" * 68]
@@ -866,6 +920,15 @@ def only_its_conv_body(counts, precision, label):
                            f"launch {ran} only: {counts}")
 
 
+def plan_line(plan):
+    """A plan's groups: window/blue sub-window (exact: the exact
+    structure-function transform), rows, chunk sizes."""
+    return "; ".join(
+        f"{g.cfg.otf_support or 'full'}/{g.cfg.otf_blue}"
+        f"{'' if g.cfg.use_dphi_split else ' exact'} x {len(g.rows)} rows "
+        f"in {list(g.sizes)}" for g in plan.groups)
+
+
 def check_plan(rows, night, golden):
     from muse_psfr_tpu_torch.parallel.batch import plan_batch
     kw = {k: night[k] for k in ("npsflin", "cfg", "chunk")}
@@ -873,9 +936,7 @@ def check_plan(rows, night, golden):
     with open(os.path.join(DATA, golden)) as fh:
         if plan.summary() != json.load(fh):
             raise RuntimeError(f"the plan differs from {golden}")
-    print(f"plan == {golden}: " + "; ".join(
-        f"{g.cfg.otf_support or 'full'}/{g.cfg.otf_blue} x {len(g.rows)} "
-        f"rows in {list(g.sizes)}" for g in plan.groups))
+    print(f"plan == {golden}: {plan_line(plan)}")
 
 
 def check_fits(fit, n_rows, *arrays):
@@ -899,7 +960,8 @@ def warmed_nights(process_batch, rows, night, card, label, n=5):
         walls.append(time.perf_counter() - t0)
     dt = float(np.median(walls))
     print(f"{label} warmed x{n}: wall {' '.join(f'{t:.4f}' for t in walls)}"
-          f" s; median {dt:.4f} s, {len(rows[0]) / dt:.2f} rows/s ({card})")
+          f" s; median {dt:.4f} s, spread {max(walls) - min(walls):.4f} s, "
+          f"{len(rows[0]) / dt:.2f} rows/s ({card})")
     return dt
 
 
@@ -1194,16 +1256,17 @@ def forced_redo(cfg, guard_log, mesh=None, label=""):
         raise RuntimeError(f"the redone cube is off by {err}")
 
 
-def golden_rms(cfg, rows, label, mesh=None):
-    """The pinned row through ``reconstruct_batch`` at ``cfg`` (over
-    ``mesh``) against the float64 oracle cube."""
+def golden_rms(cfg, rows, label, mesh=None, golden=GOLDEN):
+    """The pinned row (row 0 of ``rows``) through ``reconstruct_batch`` at
+    ``cfg`` (over ``mesh``) against the float64 oracle cube ``golden``."""
     from muse_psfr_tpu_torch.parallel.batch import reconstruct_batch
     cube = reconstruct_batch(*(a[:1] for a in rows), lbda=LBDA, cfg=cfg,
                              chunk=1, device="cuda", mesh=mesh)[0]
     rms = float(np.sqrt(np.mean((cube.astype(np.float64)
-                                 - np.load(GOLDEN)) ** 2)))
-    print(f"golden row (1.0, 0.7, 25), {label}: rms {rms:.3e} vs the "
-          "float64 oracle (limit 1e-5)")
+                                 - np.load(golden)) ** 2)))
+    print(f"golden row ({rows[0][0]:g}, {rows[1][0]:g}, {rows[2][0]:g}), "
+          f"{label}: rms {rms:.3e} vs the float64 oracle "
+          f"{os.path.basename(golden)} (limit 1e-5)")
     if not rms <= 1e-5:
         raise RuntimeError(f"golden rms {rms} over the 1e-5 budget")
 
@@ -2226,12 +2289,13 @@ def mesh_phase(torch, cfg, user_cfg, rows, card, guard_log, night9):
     return out
 
 
-def sweep_rows():
-    """The 32 x 32 x 1 sweep's 1024 rows, as ``condition_sweep`` hands
-    them to ``process_batch``."""
-    grid = np.meshgrid(np.linspace(0.6, 1.6, 32), np.linspace(0.3, 0.9, 32),
-                       [25.0], indexing="ij")
-    return [g.ravel() for g in grid] + [np.ones((1024, 4))]
+def sweep_rows(n=32, l0=(25.0,)):
+    """The n x n x len(l0) sweep's rows (seeing 0.6-1.6", GL 0.3-0.9), as
+    ``condition_sweep`` hands them to ``process_batch``; by default the
+    32 x 32 x 1 sweep's 1024."""
+    grid = np.meshgrid(np.linspace(0.6, 1.6, n), np.linspace(0.3, 0.9, n),
+                       l0, indexing="ij")
+    return [g.ravel() for g in grid] + [np.ones((grid[0].size, 4))]
 
 
 def counted_night(rows, night, **kw):
@@ -2257,15 +2321,18 @@ def same_bits(label, got, want):
                            f"{diffs}")
 
 
-def graph_against_eager(label, rows, night):
+def graph_against_eager(label, rows, night, log=None):
     """The night with its programs replayed against the same night run
     eagerly (``_graphs=False``): fits, mean PSF and its fit bit for bit,
     launch counts equal, nothing captured in the replayed night (a night
-    that still captured a program is run again)."""
+    that still captured a program is run again).  With ``log`` (a list)
+    the eager night's zoom calls are appended to it
+    (:func:`zoom_calls`)."""
     got, counts, captured = counted_night(rows, night)
     if captured:
         got, counts, captured = counted_night(rows, night)
-    want, want_counts, _ = counted_night(rows, night, _graphs=False)
+    with (zoom_calls(log) if log is not None else contextlib.nullcontext()):
+        want, want_counts, _ = counted_night(rows, night, _graphs=False)
     same_bits(label, got, want)
     print(f"graphs {label}: bit-equal to eager; launches {counts}; "
           f"{captured} captured in the replayed night")
@@ -2299,16 +2366,19 @@ def walls_in_turns(rows, night, warm, card, label):
     return out
 
 
-def profiled_shares(torch, rows, night, label, card, path=None):
-    """torch.profiler over one warmed night: host self time (and the ops
-    that hold most of it), device self time, the union of the device's
-    busy intervals and its idle share of the night's wall (under the
-    profiler); with ``path`` the profiler's table, printed and written
-    there."""
+def profiled_shares(torch, rows, night, label, card, path=None, warm=1):
+    """torch.profiler over one night after ``warm`` warm-up nights (two
+    where the night's programs are new to the process: the first
+    dispatches them eagerly, the second captures them): host self time
+    (and the ops that hold most of it), device self time, the union of
+    the device's busy intervals and its idle share of the night's wall
+    (under the profiler); with ``path`` the profiler's table, printed and
+    written there."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from muse_psfr_tpu_torch.parallel.batch import process_batch
-    process_batch(*rows, **night)
+    for _ in range(warm):
+        process_batch(*rows, **night)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2463,11 +2533,19 @@ def graphs_phase(torch, cfg, user_cfg, top, rows, card, guard_log, night,
     lap("the profiles")
 
     progs = programs.programs()
+    total = print_programs(torch, progs, card)
+    out["programs"] = dict(count=len(progs), capture_s=total)
+    return out
+
+
+def print_programs(torch, progs, card):
+    """Each captured program's key, capture time, memory and launches per
+    replay, then the card's memory; returns the capture time in all."""
     for p in progs:
         k = p.key
         what = (f"{k[0]} {k[1]} {k[2]}" if k[0] == "mean" else
-                f"{k[0]} window {k[1].otf_support or 'full'} blue "
-                f"{k[1].otf_blue} split {k[1].use_dphi_split} anchor "
+                f"{k[0]} dim {k[1].dim} window {k[1].otf_support or 'full'} "
+                f"blue {k[1].otf_blue} split {k[1].use_dphi_split} anchor "
                 f"{k[1].zoom_anchor} disc {k[1].disc_skip} fft "
                 f"{k[1].use_fft} zoom {k[1].zoom_precision} conv "
                 f"{k[1].conv_precision} rows {k[2]} nl {k[3]} npsflin "
@@ -2483,8 +2561,7 @@ def graphs_phase(torch, cfg, user_cfg, top, rows, card, guard_log, night,
           f"memory reserved now {torch.cuda.memory_reserved() / 2**30:.3f} "
           f"GiB, at most {torch.cuda.max_memory_reserved() / 2**30:.3f} GiB "
           f"({card})")
-    out["programs"] = dict(count=len(progs), capture_s=total)
-    return out
+    return total
 
 
 #: the keys of ``bench.py``'s JSON line (:183-199), in its order, then the
@@ -2530,15 +2607,33 @@ def bench_run(label, env, card, golden):
     return res
 
 
-def plan_launches(name):
-    """Row 0's group and the K1 launches of one night by the golden plan
-    ``name``: one a chunk, two in a group that splits the blue
-    wavelengths off (each segment is zoomed apart)."""
+def plan_row0(name):
+    """Row 0's group in the golden plan ``name``."""
     with open(os.path.join(DATA, name)) as fh:
-        groups = json.load(fh)["groups"]
-    row0 = next(g["cfg_delta"] for g in groups if 0 in g["rows"])
-    return row0, sum(len(g["sizes"]) * (2 if g["cfg_delta"].get("otf_blue")
-                                        else 1) for g in groups)
+        return next(g["cfg_delta"] for g in json.load(fh)["groups"]
+                    if 0 in g["rows"])
+
+
+def plan_kernels(groups, fft_free):
+    """The launches one night at zoom_precision "high" makes by the plan
+    ``groups`` (its summary's, or the name of a golden plan): K1 once a
+    chunk, twice in a group that splits the blue wavelengths off, with
+    three passes, and with six in the exact group
+    (``otf/psf.py:_zoom_precision``); on the FFT-free route, K2 once a
+    chunk."""
+    if isinstance(groups, str):
+        with open(os.path.join(DATA, groups)) as fh:
+            groups = json.load(fh)["groups"]
+    want = {}
+    for g in groups:
+        delta = g["cfg_delta"]
+        key = ("zoom_dft" if delta.get("use_dphi_split") is False
+               else "zoom_dft_tc")
+        want[key] = (want.get(key, 0)
+                     + len(g["sizes"]) * (2 if delta.get("otf_blue") else 1))
+    if fft_free:
+        want["conv_dft"] = sum(len(g["sizes"]) for g in groups)
+    return want
 
 
 def bench_phase(torch, rows, card, replayed_median):
@@ -2557,13 +2652,13 @@ def bench_phase(torch, rows, card, replayed_median):
             ("1000 rows", dict(BENCH_ROWS="1000", BENCH_BLOCKS="1",
                                BENCH_REPS="5"),
              "golden_plan_night1000.json")):
-        golden, n_k1 = plan_launches(name)
-        res = bench_run(label, env, card, golden)
+        res = bench_run(label, env, card, plan_row0(name))
         counts = res["launches_per_night"]
-        if {k: v for k, v in counts.items() if v} != {"zoom_dft_tc": n_k1}:
-            raise RuntimeError(f"bench {label}: one night must launch K1 "
-                               f"high {n_k1} times ({name}) and nothing "
-                               f"else: {counts}")
+        want = plan_kernels(name, False)
+        if {k: v for k, v in counts.items() if v} != want:
+            raise RuntimeError(f"bench {label}: one night must launch "
+                               f"{want} ({name}) and nothing else: "
+                               f"{counts}")
         out[label] = counts["zoom_dft_tc"]
         if label == "100 rows":
             print(f"bench 100 rows: median {res['median_s']:.4f} s over "
@@ -2575,6 +2670,345 @@ def bench_phase(torch, rows, card, replayed_median):
                                       device="cuda"),
                     "the bench's 100-row night, replayed, in process", card)
     return out
+
+
+@contextlib.contextmanager
+def zoom_calls(log):
+    """Appends to ``log`` every call of ``otf/psf.py:_psf_chunk_fused``
+    (one per chunk and window segment) while the block runs: the group's
+    route (the split PSD or the exact transform), its window, rows,
+    directions, the structure function's shape, the wavelengths and the
+    kernel launches the call made.  An eager step and a capture call it;
+    a replayed graph does not."""
+    from muse_psfr_tpu_torch.ops import _build
+    from muse_psfr_tpu_torch.otf import psf
+    fused = psf._psf_chunk_fused
+
+    def logged(base, lb_k, npix_k, cfg):
+        before = _build.launch_counts()
+        out = fused(base, lb_k, npix_k, cfg)
+        after = _build.launch_counts()
+        B, ndir, n, ncols = base.shape
+        log.append(dict(route="split" if cfg.use_dphi_split else "exact",
+                        window=cfg.otf_support or "full", B=B, ndir=ndir,
+                        shape=(n, ncols), nl=int(lb_k.shape[0]),
+                        launched={k: after[k] - before[k] for k in after
+                                  if after[k] != before[k]}))
+        return out
+
+    psf._psf_chunk_fused = logged
+    try:
+        yield log
+    finally:
+        psf._psf_chunk_fused = fused
+
+
+def zoom_shapes(calls, label):
+    """Prints a night's zoom calls (:func:`zoom_calls`) by kind and
+    returns the K1/K3 launches per (n, ncols) window shape."""
+    kinds, per_shape = {}, {}
+    for c in calls:
+        key = (c["route"], c["window"], c["B"], c["ndir"], c["shape"],
+               c["nl"], tuple(sorted(c["launched"].items())))
+        kinds[key] = kinds.get(key, 0) + 1
+        per_shape[c["shape"]] = (per_shape.get(c["shape"], 0)
+                                 + sum(c["launched"].values()))
+    for (route, win, B, ndir, shape, nl, launched), n in kinds.items():
+        print(f"  {label}: {n} x {route} window {win}, {B} rows x {ndir} "
+              f"directions, {shape[0]} x {shape[1]}, {nl} wavelengths -> "
+              f"{dict(launched)}")
+    return per_shape
+
+
+def memory_line(torch, label, card):
+    """The card's reserved and allocated memory, and their peaks."""
+    print(f"{label}: torch.cuda.max_memory_reserved "
+          f"{torch.cuda.max_memory_reserved() / 2**30:.3f} GiB, "
+          f"memory_reserved {torch.cuda.memory_reserved() / 2**30:.3f} GiB, "
+          f"max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB ({card})")
+
+
+def fresh_pools(torch, label, card):
+    """Drops every captured program and its pool (the configurations
+    that follow share none of them), returns the freed memory to the
+    card and restarts the peak counters."""
+    from muse_psfr_tpu_torch.parallel import programs
+    n = len(programs.programs())
+    programs.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"{label}: dropped {n} programs; memory reserved now "
+          f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB ({card})")
+
+
+def planned_night(torch, rows, night, golden, label, card, guard_log,
+                  warm=5, full=True, pinned=None):
+    """A night of phases 24-25 through ``process_batch``: the plan equals
+    ``golden``; its first night launches what the plan says
+    (:func:`plan_kernels`) and has finite, converged fits; with ``full``
+    the mean PSF within 1e-5 relative and the per-row FWHM/beta within
+    1e-3 of the same night on the full window; replayed equal to eager
+    bit for bit; ``warm`` warmed nights; with ``pinned`` row 0 against
+    that golden cube (rms <= 1e-5); the memory after the captures.
+    Returns the first night's launches, the K1/K3 launches per window
+    shape and the eager night's zoom calls (:func:`zoom_calls`)."""
+    from muse_psfr_tpu_torch.fit.moffat_fit import unpack_fit
+    from muse_psfr_tpu_torch.parallel.batch import process_batch
+    cfg = night["cfg"]
+    check_plan(rows, night, golden)
+    want = plan_kernels(golden, not cfg.use_fft)
+    guard_log.trips.clear()
+    t0 = time.perf_counter()
+    (fit, mean, fit_mean), counts, captured = counted_night(rows, night)
+    first = time.perf_counter() - t0
+    ran = {k: v for k, v in counts.items() if v}
+    print(f"{label}: first night {first:.3f} s ({captured} programs "
+          f"captured); launches {ran}, the plan's {want}; window-guard "
+          f"trips: {len(guard_log.trips)} {guard_log.trips}")
+    if ran != want:
+        raise RuntimeError(f"{label}: launches {ran}, the plan says {want}")
+    got = check_fits(fit, len(rows[0]), mean, fit_mean)
+    print(f"{label}: all {got['ok'].size} plane fits finite and converged; "
+          f"fwhm {got['fwhm'][..., 0].min() * cfg.pixscale:.3f}-"
+          f"{got['fwhm'][..., 0].max() * cfg.pixscale:.3f} arcsec, beta "
+          f"{got['n'].min():.3f}-{got['n'].max():.3f}")
+    if full:
+        t0 = time.perf_counter()
+        f = process_batch(*rows, **night, _force_full=True)
+        print(f"{label}: the full-window night in "
+              f"{time.perf_counter() - t0:.3f} s")
+        compare_nights(f"{label} against its full-window night", mean, got,
+                       f[1], unpack_fit(f[0]))
+    calls = []
+    graph_against_eager(label, rows, night, log=calls)
+    shapes = zoom_shapes(calls, f"{label}, eager")
+    if warm:
+        warmed_nights(process_batch, rows, night, card, label, n=warm)
+    if pinned:
+        golden_rms(cfg, rows, label, golden=pinned)
+    memory_line(torch, f"{label}, after its captures", card)
+    return ran, shapes, calls
+
+
+def one_row(cfg, L0, card, label, key):
+    """``compute_psf`` of (1.0, 0.7, ``L0``) at 35 wavelengths and
+    ``cfg``, counted: finite, the kernel ``key`` launched.  Returns the
+    table, the cube and the launches."""
+    from muse_psfr_tpu_torch import compute_psf
+    from muse_psfr_tpu_torch.ops import _build
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    tbl, psf = compute_psf(LBDA, 1.0, 0.7, L0, verbose=False, cfg=cfg,
+                           device="cuda")
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in _build.launch_counts().items() if v}
+    print(f"compute_psf (1.0, 0.7, {L0:g}) x {LBDA.size} wavelengths, "
+          f"{label}: {wall:.3f} s ({card}); launches {counts}")
+    if not (np.all(np.isfinite(psf)) and np.all(np.isfinite(tbl["fwhm"]))
+            and np.all(np.isfinite(tbl["n"]))):
+        raise RuntimeError(f"compute_psf {label}: non-finite values")
+    if counts.get(key, 0) < 1 or set(counts) - {key, "zoom_dft_tc"}:
+        raise RuntimeError(f"compute_psf {label}: {key} must run, and no "
+                           f"other kernel than K1 high: {counts}")
+    return tbl, psf, counts
+
+
+def against_1280(hi, lo, label):
+    """FWHM within 0.02 arcsec of the same call at dim 1280 (the JAX
+    package's ``test_highres_2048_mode`` bound); beta printed."""
+    dfw = float(np.max(np.abs(hi["fwhm"][:, 0] - lo["fwhm"][:, 0])))
+    dn = float(np.max(np.abs(hi["n"] - lo["n"])))
+    print(f"{label} against dim 1280: FWHM {dfw:.3e} arcsec (limit 0.02), "
+          f"beta {dn:.3e} at most")
+    if not dfw < 0.02:
+        raise RuntimeError(f"{label}: FWHM moved {dfw} from dim 1280")
+
+
+def highres_kernels(torch, cfg, dev, rows, chunk_rows):
+    """Phase 24a: K1 "high" at the three window shapes of the 2048 plan
+    on its full-window chunk ``chunk_rows`` (25 rows x 35 wavelengths),
+    and K3 at the one-row call's blue segment (1 row x 21 wavelengths,
+    S=256), each against its plain version; the row splits the main
+    path takes at each shape printed."""
+    from muse_psfr_tpu_torch.ops.zoom_dft import M_TILE, N_TILE
+    from muse_psfr_tpu_torch.otf.psf import _zoom_row_splits
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sub = tuple(a[chunk_rows] for a in rows)
+    B = len(chunk_rows)
+
+    def splits(nrow, nl, n, ncols):
+        return _zoom_row_splits(nrow * nl * -(-ncols // N_TILE)
+                                * -(-4 * cfg.dimpsf // M_TILE), n, sms)
+
+    recs = {}
+    for S in (0, 512, 256):
+        c = cfg.with_(otf_support=S)
+        half = c.otf_window[1]
+        n, ncols = 2 * half, half + 128
+        r = splits(B, LBDA.size, n, ncols)
+        print(f"K1 high dim 2048, window {S or 'full'} ({n} x {ncols}), "
+              f"{B} rows x {LBDA.size}: R={r} row splits on the main path")
+        if r != 1:
+            raise RuntimeError(f"a {B}-row chunk splits its rows: R={r}")
+        recs[(n, ncols)] = dict(
+            name=f"fused_exp_zoom@high,dim2048 (K1 _kernel_dirfull, {B} "
+            f"rows x 35, window {n} x {ncols})",
+            replaces=f"{JAX_ZOOM}:124,179",
+            **check_zoom_kernel(torch, c, dev, sub, B, LBDA,
+                                label=f"K1 high dim 2048 {n}x{ncols}"))
+    blue, red = LBDA[:21], LBDA[21:]
+    r = splits(1, blue.size, 512, 384)
+    print(f"the one-row call at dim 2048 (S=512, 21 blue on S=256): R={r} "
+          f"on its 512 x 384 segment, R={splits(1, red.size, 1024, 640)} "
+          f"on its 1024 x 640 segment")
+    if r < 2:
+        raise RuntimeError(f"the one-row call's blue segment takes R={r}")
+    k3 = dict(name=f"fused_exp_zoom_rowsplit@high,dim2048 (K3, 1 row x 21 "
+              f"wavelengths, window 512 x 384, R={r})",
+              replaces=f"{JAX_ZOOM}:145,179",
+              **check_zoom_kernel(torch, cfg.with_(otf_support=256), dev,
+                                  rows, 1, blue, row_splits=r,
+                                  label="K3 high dim 2048 one row"))
+    return recs, k3
+
+
+def highres_phase(torch, dev, rows, card, guard_log):
+    """Phase 24: the 2048^2 grid (``GalacsiConfig(dim=2048)``): the zoom
+    kernels at its shapes (24a), the 1-direction night at the default
+    config and FFT-free (24b), the 9-direction night (24c), one row
+    through ``compute_psf`` (24d).  Returns the kernel records with their
+    launches on the default-config night and on the one-row call."""
+    from muse_psfr_tpu_torch.config import GalacsiConfig
+    from muse_psfr_tpu_torch.parallel import programs
+    user = GalacsiConfig(dim=2048)
+    with open(os.path.join(DATA, "golden_plan_night100_dim2048.json")) as fh:
+        full_group = next(g for g in json.load(fh)["groups"]
+                          if g["cfg_delta"].get("otf_support") is None
+                          and g["nvals"] == g["sizes"])
+    recs, k3 = highres_kernels(torch, user.with_(use_fft=False), dev, rows,
+                               np.array(full_group["rows"]))
+    fresh_pools(torch, "phase 24b, the 2048^2 nights", card)
+    t0 = time.perf_counter()
+    night = dict(lbda=LBDA, npsflin=1, cfg=user, chunk=25, device="cuda")
+    golden = "golden_plan_night100_dim2048.json"
+    _, shapes, _ = planned_night(
+        torch, rows, night, golden, "2048^2 1-direction night, default "
+        "config", card, guard_log, pinned=GOLDEN_2048)
+    free = dict(night, cfg=user.with_(use_fft=False))
+    planned_night(torch, rows, free, golden, "2048^2 1-direction night, "
+                  "FFT-free", card, guard_log, pinned=GOLDEN_2048)
+    print(f"  (phase 24b in {time.perf_counter() - t0:.1f} s)")
+    for shape, rec in recs.items():
+        rec["launches"] = shapes.get(shape, 0)
+    print_programs(torch, programs.programs(), card)
+    fresh_pools(torch, "phase 24c, the 9-direction 2048^2 night", card)
+    t0 = time.perf_counter()
+    planned_night(torch, rows, dict(night, npsflin=3),
+                  "golden_plan_night100_dim2048_npsflin3.json",
+                  "2048^2 9-direction night, default config", card,
+                  guard_log, warm=1)
+    print(f"  (phase 24c in {time.perf_counter() - t0:.1f} s)")
+    print_programs(torch, programs.programs(), card)
+    tbl, psf, counts = one_row(user, 25.0, card, "dim 2048",
+                               "zoom_dft_tc_rowsplit")
+    k3["launches"] = counts["zoom_dft_tc_rowsplit"]
+    rms = float(np.sqrt(np.mean((psf - np.load(GOLDEN_2048)) ** 2)))
+    print(f"compute_psf at dim 2048: rms {rms:.3e} vs the float64 oracle "
+          f"{os.path.basename(GOLDEN_2048)} (limit 1e-5)")
+    if not rms <= 1e-5:
+        raise RuntimeError(f"compute_psf at dim 2048: rms {rms}")
+    lo, _, _ = one_row(GalacsiConfig(), 25.0, card, "dim 1280",
+                       "zoom_dft_tc_rowsplit")
+    against_1280(tbl, lo, "compute_psf at dim 2048")
+    return [*recs.values(), k3]
+
+
+def exact_phase(torch, rows, card, guard_log):
+    """Phase 25: the exact structure-function group (rows with L0 <
+    ``dphi_split_l0_min``): the bench night with L0 = 2.0 on every tenth
+    row at the default config and FFT-free (25a), one such row at dim 2048
+    (25b), the 16 x 16 x 8 condition sweep with its L0 = 2.0 plane
+    (25c).  Returns the exact-row nights' launches."""
+    from muse_psfr_tpu_torch import compute_psf, condition_sweep
+    from muse_psfr_tpu_torch.config import GalacsiConfig
+    from muse_psfr_tpu_torch.ops import _build
+    from muse_psfr_tpu_torch.parallel import programs
+    from muse_psfr_tpu_torch.parallel.batch import plan_batch
+    user = GalacsiConfig()
+    fresh_pools(torch, "phase 25, the exact group", card)
+    L0 = rows[2].copy()
+    L0[::10] = 2.0
+    exact_rows = (rows[0], rows[1], L0, rows[3])
+    night = dict(lbda=LBDA, npsflin=1, cfg=user, chunk=50, device="cuda")
+    t0 = time.perf_counter()
+    exact_launches = {}
+    for label, kw in (("default config", night),
+                      ("FFT-free", dict(night, cfg=user.with_(
+                          use_fft=False)))):
+        ran, _, calls = planned_night(
+            torch, exact_rows, kw, "golden_plan_night100_exact.json",
+            f"exact-row night, {label}", card, guard_log, warm=3,
+            full=False, pinned=GOLDEN_EXACT)
+        exact = [c for c in calls if c["route"] == "exact"]
+        if not exact or any(c["window"] != "full" or c["shape"] != (
+                user.dim, user.dim // 2 + 128) or c["launched"] != {
+                "zoom_dft": 1} for c in exact):
+            raise RuntimeError(f"the exact group must launch K1 at six "
+                               f"passes once a chunk on the full window: "
+                               f"{exact}")
+        exact_launches[label] = ran
+    print(f"  (phase 25a in {time.perf_counter() - t0:.1f} s)")
+
+    hi, _, _ = one_row(user.with_(dim=2048), 2.0, card,
+                       "dim 2048, exact group", "zoom_dft")
+    lo, _, _ = one_row(user, 2.0, card, "dim 1280, exact group", "zoom_dft")
+    against_1280(hi, lo, "compute_psf at L0 = 2.0, dim 2048")
+
+    sv, gv = np.linspace(0.6, 1.6, 16), np.linspace(0.3, 0.9, 16)
+    lv = np.array([2.0, 4.5, 8.0, 11.0, 14.0, 18.0, 23.0, 29.0])
+    sweep = sweep_rows(16, lv)
+    kw = dict(lbda=LBDA, cfg=user, chunk=64, device="cuda")
+    plan = plan_batch(*sweep, LBDA, cfg=user, chunk=64)
+    want = plan_kernels(plan.summary()["groups"], False)
+    print(f"16 x 16 x 8 sweep's plan: {plan_line(plan)}")
+    guard_log.trips.clear()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = condition_sweep(sv, gv, lv, **kw)
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in _build.launch_counts().items() if v}
+    print(f"condition_sweep 16 x 16 x 8 x {LBDA.size} wavelengths, chunk "
+          f"64: {wall:.3f} s, the first sweep of the process ({card}); "
+          f"launches {counts}; window-guard trips: {len(guard_log.trips)}")
+    if counts != want:
+        raise RuntimeError(f"the sweep launched {counts}, its plan says "
+                           f"{want}")
+    if not (res["fwhm"].shape == (16, 16, 8, LBDA.size)
+            and np.all(np.isfinite(res["fwhm"]))
+            and np.all(np.isfinite(res["beta"]))):
+        raise RuntimeError(f"the sweep: shape {res['fwhm'].shape} or a "
+                           "non-finite fit")
+    i, j = int(np.argmin(np.abs(sv - 1.0))), int(np.argmin(np.abs(gv - 0.7)))
+    one, _ = compute_psf(LBDA, sv[i], gv[j], 2.0, verbose=False, cfg=user,
+                         device="cuda")
+    dfw = float(np.max(np.abs(res["fwhm"][i, j, 0] / one["fwhm"][:, 0] - 1)))
+    dn = float(np.max(np.abs(res["beta"][i, j, 0] / one["n"] - 1)))
+    print(f"grid point ({sv[i]:.4f}, {gv[j]:.4f}, 2.0) against a one-row "
+          f"compute_psf: FWHM {dfw:.3e}, beta {dn:.3e} relative (limit "
+          f"1e-3)")
+    if not (dfw <= 1e-3 and dn <= 1e-3):
+        raise RuntimeError("the sweep departs from compute_psf")
+    t0 = time.perf_counter()
+    graph_against_eager("16 x 16 x 8 sweep's rows", sweep, kw)
+    print(f"  (the sweep's rows replayed and eager in "
+          f"{time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    condition_sweep(sv, gv, lv, **kw)
+    print(f"condition_sweep 16 x 16 x 8, warmed (its programs replayed): "
+          f"{time.perf_counter() - t0:.3f} s ({card})")
+    print_programs(torch, programs.programs(), card)
+    return exact_launches
 
 
 def main(argv):
@@ -2600,6 +3034,10 @@ def main(argv):
     parser.add_argument("--profile-ndir9-highest", metavar="OUT",
                         help="also profile one warmed 9-direction night at "
                              "zoom_precision=\"highest\"")
+    parser.add_argument("--profile-2048", metavar="OUT",
+                        help="also profile one warmed 1-direction night on "
+                             "the 2048^2 grid at the default config, and "
+                             "FFT-free -> OUT-fft-free")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2742,7 +3180,12 @@ def main(argv):
     t1_bench = bench_phase(torch, rows, card, graphs["walls"][
         "1-direction night, default config"]["graphs"]["median"])
     stamp("the bench, bench_torch.py (phase 23)")
+    highres = highres_phase(torch, dev, rows, card, guard_log)
+    stamp("the 2048^2 grid (phase 24)")
+    exact = exact_phase(torch, rows, card, guard_log)
+    stamp("the exact structure-function group (phase 25)")
     k1["launches"] = counts_top["zoom_dft"]
+    k1["exact_group_launches"] = {p: c["zoom_dft"] for p, c in exact.items()}
     k1_9["launches"] = counts9_top["zoom_dft"]
     k3["launches"] = k3_cli["launches"] = cli_top["zoom_dft_rowsplit"]
     k5["launches"] = counts_disc_top["zoom_dft_disc"]
@@ -2766,7 +3209,7 @@ def main(argv):
                 else m["launches"][key])
             for p, m in mesh.items() if p != "walls_s"}
     kernels = [k1, k1_9, k3, k3_cli, k2, k5, k6, t1, t1_9, t3, t3_cli, t5,
-               t6, k2h]
+               t6, k2h, *highres]
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         raise RuntimeError(f"never launched on their paths: {idle}")
@@ -2783,13 +3226,22 @@ def main(argv):
                 dict(night, cfg=top)),
                (args.profile_ndir9_highest, "9-direction night at highest",
                 rows, dict(night9, cfg=top))]
+    if args.profile_2048:
+        stem, ext = os.path.splitext(args.profile_2048)
+        hi = dict(night, cfg=GalacsiConfig(dim=2048), chunk=25)
+        flagged += [(args.profile_2048, "2048^2 1-direction night", rows, hi),
+                     (stem + "-fft-free" + ext, "2048^2 1-direction night, "
+                      "FFT-free", rows, dict(hi, cfg=hi["cfg"].with_(
+                          use_fft=False)))]
     for path, label, r, kw in flagged:
         if path:
             stem, ext = os.path.splitext(path)
             for mode, out in (("graphs", path), ("eager", stem + "-eager"
                                                  + ext)):
+                # phases 24-25 dropped every program, and a flagged
+                # night may be new to the process
                 profiled_shares(torch, r, dict(kw, _graphs=mode == "graphs"),
-                                f"{label}, {mode}", card, out)
+                                f"{label}, {mode}", card, out, warm=2)
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -555,7 +555,21 @@ def _zoom_precision(cfg: GalacsiConfig, device) -> str:
     """The contraction precision of the fused zoom kernels for a chunk on
     ``device``: ``cfg.zoom_precision`` on the card, where the kernels run
     (three bf16 passes at "high", six at "highest", both on the tensor
-    cores), and "highest" on the CPU.  The JAX package reads
+    cores), and "highest" on the CPU.
+
+    A chunk of the exact structure-function transform
+    (``use_dphi_split=False``: the batch planner's group of rows with
+    ``L0 < cfg.dphi_split_l0_min``) contracts at "highest" on the card
+    whatever ``zoom_precision`` says.  Such a small outer scale makes the
+    tip-tilt kernel nearly a delta, which the reference does not
+    renormalise: the L0 = 2.0 m pinned row's cube sums to ~490 a plane
+    (``tests/data/golden_psf_35l_s1.0_gl0.7_l02.0.npy``) where the L0 =
+    25 m row's sums to ~1.5, so the zoom stage's relative error meets the
+    absolute 1e-5 rms budget ~300x sooner.  At "high" that row lies
+    1.2e-5 rms from the float64 oracle on an H100; at "highest" 7.9e-6
+    (``chip_smoke.py`` phase 25).
+
+    The JAX package reads
     ``zoom_precision`` only in its Pallas path, which runs only on the
     TPU; off the TPU its chunk contracts in full precision (XLA), and so
     does the port's CPU chunk, which the CPU tests hold to the JAX
@@ -564,8 +578,9 @@ def _zoom_precision(cfg: GalacsiConfig, device) -> str:
     rows, then a running sum over the steps, the order the card's night at
     "highest" sums in (XLA sums in one dot, within the tests' tolerances
     of it); in float64 one matmul, as XLA does."""
-    return cfg.zoom_precision if torch.device(device).type == "cuda" \
-        else "highest"
+    if torch.device(device).type != "cuda" or not cfg.use_dphi_split:
+        return "highest"
+    return cfg.zoom_precision
 
 
 def _psf_chunk_fused(base, lb_k, npix_k, cfg: GalacsiConfig):
