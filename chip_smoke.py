@@ -29,9 +29,12 @@ Phases (any failure raises, so the exit code is non-zero):
 
 1. the card's name and power limit (``nvidia-smi``); CUDA required;
 2. build the hand-written kernels from ``muse_psfr_tpu_torch/csrc``
-   (ptxas registers and spills printed);
-3. K1 at zoom_precision "highest" (six bf16 passes on the tensor cores,
-   the TPU's ``Precision.HIGHEST``) against its plain PyTorch version at
+   (ptxas registers and spills printed), and beside them the mma.sync
+   body of K1/K3/K5 of 7a (``tools/mma_sync_bodies/zoom_dft_tc_mma.cu``,
+   one ``nvcc`` started first);
+3. K1 at zoom_precision "highest" (six bf16 passes on the tensor cores
+   as warpgroup products fed by TMA, ``csrc/zoom_dft_tc.cu``, the TPU's
+   ``Precision.HIGHEST``) against its plain PyTorch version at
    the production grid, structure function (1, 1280, 768) per row: 2 rows
    x 12 wavelengths, then one main-path chunk of 50 rows x 35 wavelengths
    (there also against float64 on its worst row, <= 6.663e-06 of that
@@ -64,6 +67,14 @@ Phases (any failure raises, so the exit code is non-zero):
    ndir x the certified bound x max row-L1(A2) + 1e-5 of max|U|), with
    the times of each; K5 and K6 at "highest" beside the float32 FMA
    bodies (``tools/fma_bodies/``), distances and times in turns;
+7a. K1/K3/K5 on the wgmma body against the mma.sync body it replaced
+   (``tools/ab_zoom_tc.py``) at both precisions: the full-window chunk
+   (at "highest" also the exact group's six-pass chunk), ndir 9, K3 at
+   the TPU's and the CLI's shape (device times by CUDA-graph replay), K5
+   and the three 2048^2 window shapes on 25 rows: each body's error
+   against the plain version (the wgmma body held to 2e-6 / 1e-6), their
+   distance, times in turns (old, new, new, old); and the one-launch bf16
+   split of A2 (``csrc/zoom_dft.cu``) against ``split_bf16`` bit for bit;
 8. the 1-direction bench night (100 rows x 35 wavelengths, 490-930 nm,
    chunk=50, FFT-free config, zoom_precision "high") through the auto
    planner: the plan equals ``tests/data/golden_plan_night100.json``,
@@ -287,8 +298,11 @@ Phases (any failure raises, so the exit code is non-zero):
     FLOPs over 67 TFLOP/s, bf16 tensor-core FLOPs (three or six passes)
     over 989 TFLOP/s, exponentials over the SFU's 16 a clock per SM), from
     this run's shapes; ``fma_body_ms`` on the "highest" records is the FMA
-    body's time in turns, ``mma_sync_body_ms`` on K2 high's the mma.sync
-    body's; the card line, and the final status line
+    body's time in turns, ``mma_sync_body_ms`` on K2 high's and on every
+    K1/K1'/K3/K5 record (``mma_sync_body_device_ms`` at the CLI shape) the
+    mma.sync body's of 17 and 7a, ``ab_ms``/``ab_device_ms`` the wgmma
+    body's in the same turns, ``mma_sync_body_apart`` the two bodies'
+    distance; the card line, and the final status line
     ``{"ok": true, "device": {...}}``.
 
 The default-config nights must launch neither K5 nor K6, and no night
@@ -1313,6 +1327,58 @@ def mma_sync_body():
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     import ab_conv_chain
     return ab_conv_chain.MmaSyncBody()
+
+
+def split_check(torch, dev):
+    """The one-launch split of A2 (``csrc/zoom_dft.cu:split_bf16``)
+    against ``ops/zoom_dft.py:split_bf16`` bit for bit, with infinities,
+    subnormals and a padded row."""
+    from muse_psfr_tpu_torch.ops import zoom_dft
+    g = torch.Generator(device="cpu").manual_seed(5)
+    x = (torch.randn((3, 40, 101), generator=g)
+         * torch.exp(20 * torch.randn((3, 40, 101), generator=g)))
+    x[0, 0, :3] = torch.tensor([float("inf"), -float("inf"), 1e-40])
+    x = x.to(dev)
+    for parts in (2, 3):
+        got = zoom_dft._a2_parts(x, parts, 104)
+        want = zoom_dft.split_bf16(torch.nn.functional.pad(x, (0, 3)), parts)
+        same = all(torch.equal(a.view(torch.int16),
+                               b.contiguous().view(torch.int16))
+                   for a, b in zip(got, want))
+        print(f"split of A2 into {parts} bf16 parts, one launch, against "
+              f"split_bf16: bit for bit {same}")
+        if not same:
+            raise RuntimeError(f"the split kernel ({parts} parts) differs "
+                               "from split_bf16")
+
+
+def zoom_ab_phase(torch, dev, rows, build):
+    """Phase 7a: K1/K3/K5 on the wgmma body against the mma.sync body it
+    replaced (``tools/mma_sync_bodies/zoom_dft_tc_mma.cu``, whose ``nvcc``
+    ``build`` ran beside the package's), at every shape of
+    ``tools/ab_zoom_tc.py`` and both precisions: errors against the plain
+    version, the bodies' distance, times in turns; and the split of A2.
+    Returns {key: {precision: record}}."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import ab_zoom_tc
+    split_check(torch, dev)
+    t0 = time.perf_counter()
+    old = ab_zoom_tc.MmaSyncZoom(build)
+    print(f"the mma.sync body of K1/K3/K5 of tools/mma_sync_bodies/ ready "
+          f"after {time.perf_counter() - t0:.1f} s more (the yardstick of "
+          f"the wgmma body; the package never launches it)")
+    return ab_zoom_tc.run(torch, dev, rows, old)
+
+
+def with_ab(rec, ab):
+    """``rec`` with the A/B record ``ab``: the mma.sync body's time in
+    turns (and the wgmma body's beside it, by CUDA-graph replay at the
+    CLI shape), their distance."""
+    key = "device_ms" if ab["device_times"] else "ms"
+    rec["mma_sync_body_" + key] = min(ab["mma_sync_ms"])
+    rec["ab_" + key] = min(ab["ms"])
+    rec["mma_sync_body_apart"] = ab["apart"]
+    return rec
 
 
 def ptxas_report(entry):
@@ -3062,6 +3128,9 @@ def main(argv):
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
     dev = resolve_device("cuda")
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import ab_zoom_tc
+    zoom_mma_build = ab_zoom_tc.start_build()   # beside the package's
     t0 = time.perf_counter()
     lib = _build.library()
     print(f"built {[p.name for p in _build.sources()]} for sm_90a in "
@@ -3132,7 +3201,16 @@ def main(argv):
           f"body; the package never launches it)")
     k2h = check_conv_high_kernel(torch, cfg, dev, rows, mma_sync)
     k5, k6, t5, t6 = check_disc_anchor_kernels(torch, cfg, dev, rows, old)
-    stamp("kernels against their plain versions (phases 2-7, 17)")
+    ab = zoom_ab_phase(torch, dev, rows, zoom_mma_build)
+    for rec, key, prec in ((t1, "k1", "high"), (k1, "k1", "highest"),
+                           (t1_9, "k1_9", "high"), (k1_9, "k1_9", "highest"),
+                           (t3, "k3", "high"), (k3, "k3", "highest"),
+                           (t3_cli, "k3_cli", "high"),
+                           (k3_cli, "k3_cli", "highest"),
+                           (t5, "k5", "high"), (k5, "k5", "highest")):
+        with_ab(rec, ab[key][prec])
+    stamp("kernels against their plain versions and the mma.sync body "
+          "(phases 2-7a, 17)")
 
     counts, cli_counts, night, exact1 = main_path(torch, cfg, rows, card)
     counts_top, cli_top = highest_night(top, rows, card, exact1[0])
@@ -3181,6 +3259,10 @@ def main(argv):
         "1-direction night, default config"]["graphs"]["median"])
     stamp("the bench, bench_torch.py (phase 23)")
     highres = highres_phase(torch, dev, rows, card, guard_log)
+    for rec in highres:
+        for key in ((2048, 1152), (1024, 640), (512, 384)):
+            if f"window {key[0]} x {key[1]})" in rec["name"]:
+                with_ab(rec, ab[key]["high"])
     stamp("the 2048^2 grid (phase 24)")
     exact = exact_phase(torch, rows, card, guard_log)
     stamp("the exact structure-function group (phase 25)")

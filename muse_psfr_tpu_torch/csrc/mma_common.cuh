@@ -1,7 +1,9 @@
-// What the tensor-core bodies share (zoom_dft_tc.cu: K1, K3, K5;
-// zoom_anchor_tc.cu: K6; conv_dft_tc.cu: K2 at "high"): the cp.async,
-// ldmatrix and mma.sync.m16n8k16 bf16 wrappers, and for the zoom kernels
-// the output store and the contraction of zoom_precision "highest".
+// What the tensor-core bodies share: the tile sizes, the shared-memory
+// budget and smem_addr (every body); the cp.async, ldmatrix and
+// mma.sync.m16n8k16 bf16 wrappers, the output store and the contraction
+// of zoom_precision "highest" (zoom_anchor_tc.cu: K6, and the mma.sync
+// body of K1/K3/K5 kept in tools/mma_sync_bodies/; the package's K1/K3/K5
+// in zoom_dft_tc.cu run warpgroup products, wgmma_common.cuh).
 //
 // "highest" is the port of the JAX package's Precision.HIGHEST contraction
 // (muse_psfr_tpu/ops/zoom_dft.py:_mxu_contract), which the TPU's matrix

@@ -70,14 +70,16 @@ BUILD_LOG = ""
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # dphi, dl, a2, alpha, w, live, ws, u, 3 dphi strides, B, ndir, n,
-    # ncols, nl, m2, row_splits, exp2, stream
-    "muse_fused_exp_zoom": [_P] * 8 + [ctypes.c_longlong] * 3 + [_I] * 8
+    # dphi, dl, A2's three bf16 parts, alpha, w, live, ws, u, 3 dphi
+    # strides, B, ndir, n, ncols, nl, m2, n_pad, row_splits, exp2, and the
+    # launch plan: warpgroups, stages, staged; stream
+    "muse_fused_exp_zoom": [_P] * 10 + [ctypes.c_longlong] * 3 + [_I] * 12
     + [_P],
-    # dphi, dl, a2_hi, a2_lo, alpha, w, live, ws, u, 3 dphi strides, B,
-    # ndir, n, ncols, nl, m2, row_splits, exp2, stream
-    "muse_fused_exp_zoom_tc": [_P] * 9 + [ctypes.c_longlong] * 3 + [_I] * 8
+    # the same with A2's two bf16 parts (hi, lo)
+    "muse_fused_exp_zoom_tc": [_P] * 9 + [ctypes.c_longlong] * 3 + [_I] * 12
     + [_P],
+    # x, its parts p0, p1, p2 (or null), rows, n, n_pad, stream
+    "muse_split_bf16": [_P] * 4 + [ctypes.c_longlong] + [_I] * 2 + [_P],
     # dphi, dl, a2, centre, astar, coef, u, 3 dphi strides, B, ndir, n,
     # ncols, nl, m2, group, deg1, stream
     "muse_fused_exp_zoom_anchor": [_P] * 7 + [ctypes.c_longlong] * 3

@@ -30,7 +30,8 @@ shared power sums of one anchor exponential.
 
 ``precision`` (``cfg.zoom_precision``) chooses the contraction of every
 one of them, as ``_mxu_contract`` does on the TPU, and both run on tensor
-cores in one body (``csrc/zoom_dft_tc.cu``, K6
+cores in one body (``csrc/zoom_dft_tc.cu``, warpgroup products fed by
+TMA in the launch plan of :func:`tc_launch_plan`; K6
 ``csrc/zoom_anchor_tc.cu``): "high" is the 3-pass bf16 split
 ``a_hi@g_hi + a_hi@g_lo + a_lo@g_hi`` with float32 accumulation;
 "highest" is the TPU's ``Precision.HIGHEST``, six bf16 passes on a
@@ -38,6 +39,8 @@ three-part split (:func:`six_pass_product`), a float32-grade product.
 Either way the kernels sum per :data:`K_STEP` contraction rows and then
 over the steps, and so do the plain versions (:func:`contract`).
 """
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -61,11 +64,17 @@ TC_DISC_LAUNCHES = 0
 ANCHOR_LAUNCHES = 0
 TC_ANCHOR_LAUNCHES = 0
 
-#: output rows and columns of one CUDA block (``TI``/``TJ`` of
-#: csrc/zoom_dft_tc.cu)
+#: A2 rows of one CUDA block and output columns of one consumer
+#: warpgroup (``TI``/``TJ`` of csrc/zoom_dft_tc.cu)
 M_TILE, N_TILE = 160, 64
 #: contraction rows per step of the kernels (``KS``)
 K_STEP = 32
+#: the launch plan's limits (csrc/zoom_dft_tc.cu): consumer warpgroups a
+#: block, stages of the TMA ring, a block's shared memory on Hopper (of
+#: which the barriers take 8 bytes a stage twice) and the slack that
+#: aligns the stages to 1024 bytes
+MAX_WARPGROUPS, MAX_STAGES = 2, 4
+SMEM_LIMIT, SMEM_BARRIERS, SMEM_SLACK = 232448, 16 * 4, 1024
 
 #: K6 limits (``KB``/``DMAX`` of csrc/zoom_anchor_tc.cu): wavelengths per
 #: group, whose A2 tiles a block stages together, and Taylor degree
@@ -247,13 +256,100 @@ def _check_splits(n, row_splits):
 
 
 def _check_rows(name, n, precision):
-    """The kernels stage A2 by 16-byte copies: rows of 8 bf16 values at
-    "high", of 4 float32 values at "highest"."""
+    """K6 stages A2 by 16-byte copies: rows of 8 bf16 values at "high", of
+    4 float32 values at "highest" (K1/K3/K5 pad A2's bf16 parts
+    instead, :func:`_a2_parts`)."""
     per = 8 if precision == "high" else 4
     if n % per:
         raise ValueError(f"{name}: the kernel stages A2 in rows of {per} "
                          f"values at {precision!r}; {n} contraction rows "
                          f"are not a multiple of {per}")
+
+
+class ZoomLaunchPlan(NamedTuple):
+    """How ``csrc/zoom_dft_tc.cu`` runs one K1/K3/K5 launch
+    (:func:`tc_launch_plan`)."""
+    warpgroups: int       # consumer warpgroups a block (64 columns each)
+    stages: int           # buffers of the TMA ring
+    staged: bool          # D and dl by TMA (else read from device memory)
+    stage_bytes: int
+    smem: int             # dynamic shared memory a block
+    grid: tuple           # (column tiles / warpgroups x A2 blocks x row
+    #                       slices, nl, B)
+    threads: int          # the consumers and one producer warpgroup
+    n_pad: int            # A2's contraction rows, padded to 8
+    operands: dict        # {operand: "tma" or "direct"}
+
+
+def tma_aligned(dphi_ptr, shape, strides, dl_ptr):
+    """Whether TMA can stage D (a view of ``shape`` (B, ndir, n, ncols) at
+    address ``dphi_ptr`` with element ``strides``, unit column stride) and
+    dl (contiguous (n, ncols) at ``dl_ptr``): 16-byte aligned bases and
+    row, direction and batch strides; a dimension of size 1 may carry any
+    stride (the kernel gives it an aligned one)."""
+    B, ndir, n, ncols = shape
+    sb, sd, sr = strides[:3]
+    used = [sr] + ([sd] if ndir > 1 else []) + ([sb] if B > 1 else [])
+    return (dphi_ptr % 16 == 0 and dl_ptr % 16 == 0 and ncols % 4 == 0
+            and all(x % 4 == 0 for x in used))
+
+
+def tc_launch_plan(B, ndir, n, ncols, nl, m2, row_splits=1,
+                   precision="high", aligned=True, sm_count=None):
+    """The launch plan of K1/K3/K5 (``csrc/zoom_dft_tc.cu``, which checks
+    it): each stage of the TMA ring holds the step's A2 parts (2 at
+    "high", 3 at "highest": 160 x 32 bf16 each) and, when D is ``aligned``
+    for TMA (:func:`tma_aligned`), each consumer warpgroup's 32-row tile
+    of D in every direction and of dl (2 x 32 x 32 floats each).  Two
+    warpgroups (two 64-column tiles sharing the A2 stages) where their
+    stages fit twice in a block's shared memory, else one; else D and dl
+    are read from device memory (the direct path) and TMA stages A2
+    alone; then as many stages as fit, at most :data:`MAX_STAGES`.  A
+    launch whose grid of two-warpgroup blocks would leave some of the
+    ``sm_count`` SMs idle takes one warpgroup a block where that fits.
+    A2's rows past 160 take more blocks (``m2 > 160`` is tiled)."""
+    check_precision(precision)
+    parts = 2 if precision == "high" else 3
+    a_bytes = parts * M_TILE * K_STEP * 2
+    tile = 2 * (ndir + 1) * K_STEP * 32 * 4
+    room = SMEM_LIMIT - SMEM_BARRIERS - SMEM_SLACK
+    njt, nib = -(-ncols // N_TILE), -(-m2 // M_TILE)
+
+    def blocks(wgs):
+        return -(-njt // wgs) * nib * row_splits * nl * B
+
+    many = MAX_WARPGROUPS
+    order = ((1, many) if sm_count and blocks(many) < sm_count
+             else (many, 1))
+    options = ([(w, True) for w in order] if aligned else []) + \
+        [(w, False) for w in order]
+    for wgs, staged in options:
+        stage = a_bytes + (wgs * tile if staged else 0)
+        stages = min(MAX_STAGES, room // stage)
+        if stages >= 2:
+            break
+    how = "tma" if staged else "direct"
+    return ZoomLaunchPlan(wgs, stages, staged, stage,
+                          stages * stage + SMEM_SLACK,
+                          (blocks(wgs) // (nl * B), nl, B),
+                          128 * (wgs + 1), -(-n // 8) * 8,
+                          {"a2": "tma", "dphi": how, "dl": how})
+
+
+def _a2_parts(a2, parts, n_pad):
+    """A2's bf16 parts (:func:`split_bf16`, bit for bit), each (nl, m2,
+    n_pad), zero past A2's own rows, made on the card by one launch of
+    ``csrc/zoom_dft.cu:split_bf16``: once per launch, never per row in the
+    kernel (they depend on the wavelengths only)."""
+    nl, m2, n = a2.shape
+    out = [torch.empty((nl, m2, n_pad), dtype=torch.bfloat16,
+                       device=a2.device) for _ in range(parts)]
+    err = _build.library().muse_split_bf16(
+        a2.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+        out[2].data_ptr() if parts == 3 else 0, nl * m2, n, n_pad,
+        torch.cuda.current_stream(a2.device).cuda_stream)
+    _build.check_launch(err, "split_bf16")
+    return out
 
 
 def _launch(name, dphi, dl, a2, alpha, w, exp2, row_splits, precision,
@@ -273,7 +369,11 @@ def _launch(name, dphi, dl, a2, alpha, w, exp2, row_splits, precision,
                           unit_stride_only=True)
     if nl > 65535 or B > 65535:
         raise ValueError(f"{name}: grid too large (nl={nl}, B={B})")
-    _check_rows(name, n, precision)
+    plan = tc_launch_plan(
+        B, ndir, n, ncols, nl, m2, row_splits, precision,
+        tma_aligned(dphi.data_ptr(), dphi.shape, dphi.stride(),
+                    dl.data_ptr()),
+        torch.cuda.get_device_properties(dphi.device).multi_processor_count)
     if exp2:
         alpha = alpha * _LOG2E
         w = torch.log2(w)
@@ -285,20 +385,16 @@ def _launch(name, dphi, dl, a2, alpha, w, exp2, row_splits, precision,
     sb, sd, sr, _ = dphi.stride()
     stream = torch.cuda.current_stream(dphi.device).cuda_stream
     live_ptr = 0 if live is None else live.data_ptr()
-    if precision == "high":
-        # A2's split depends on the wavelengths only: once per launch,
-        # never per row in the kernel
-        a2_hi, a2_lo = split_bf16(a2)
-        err = _build.library().muse_fused_exp_zoom_tc(
-            dphi.data_ptr(), dl.data_ptr(), a2_hi.data_ptr(),
-            a2_lo.data_ptr(), alpha.data_ptr(), w.data_ptr(), live_ptr,
-            ws.data_ptr(), u.data_ptr(), sb, sd, sr, B, ndir, n, ncols, nl,
-            m2, row_splits, int(exp2), stream)
-    else:
-        err = _build.library().muse_fused_exp_zoom(
-            dphi.data_ptr(), dl.data_ptr(), a2.data_ptr(), alpha.data_ptr(),
-            w.data_ptr(), live_ptr, ws.data_ptr(), u.data_ptr(), sb, sd, sr,
-            B, ndir, n, ncols, nl, m2, row_splits, int(exp2), stream)
+    parts = _a2_parts(a2, 2 if precision == "high" else 3, plan.n_pad)
+    lib = _build.library()
+    entry = (lib.muse_fused_exp_zoom_tc if precision == "high"
+             else lib.muse_fused_exp_zoom)
+    err = entry(
+        dphi.data_ptr(), dl.data_ptr(), *(p.data_ptr() for p in parts),
+        alpha.data_ptr(), w.data_ptr(), live_ptr, ws.data_ptr(),
+        u.data_ptr(), sb, sd, sr, B, ndir, n, ncols, nl, m2, plan.n_pad,
+        row_splits, int(exp2), plan.warpgroups, plan.stages,
+        int(plan.staged), stream)
     _build.check_launch(err, name)
     return u
 

@@ -163,14 +163,25 @@ def test_tc_kernel_takes_a_strided_view_and_checks_rows(dev):
     want = zoom_dft.fused_exp_zoom_reference(odd[0].contiguous(), *odd[1:],
                                              precision="high")
     assert _rel(got, want) <= 2e-6
-    bad = _zoom_args(dev, 1, 1, 36, 64, 16)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        zoom_dft.fused_exp_zoom(*bad, precision="high")
-    # 36 rows are whole 16-byte chunks of float32: "highest" takes them
-    assert _rel(zoom_dft.fused_exp_zoom(*bad),
-                zoom_dft.fused_exp_zoom_reference(*bad)) <= 2e-6
-    with pytest.raises(ValueError, match="multiple of 4"):
-        zoom_dft.fused_exp_zoom(*_zoom_args(dev, 1, 1, 34, 64, 16))
+    # contraction rows that are no whole 16-byte TMA row of A2's bf16
+    # parts: the wrapper pads the parts with zeros, at both precisions
+    for n in (36, 34):
+        odd_n = _zoom_args(dev, 1, 1, n, 64, 16)
+        for prec in ("high", "highest"):
+            assert _rel(zoom_dft.fused_exp_zoom(*odd_n, precision=prec),
+                        zoom_dft.fused_exp_zoom_reference(
+                            *odd_n, precision=prec)) <= 2e-6
+    # what the kernel refuses: row slices that are no multiple of 32 rows,
+    # float64, a view without unit column stride
+    with pytest.raises(ValueError, match="row_splits"):
+        zoom_dft.fused_exp_zoom(*_zoom_args(dev, 1, 1, 96, 64, 16),
+                                row_splits=2, precision="high")
+    with pytest.raises(ValueError, match="float32"):
+        zoom_dft.fused_exp_zoom(*(x.double() for x in odd_n))
+    with pytest.raises(ValueError, match="unit stride"):
+        zoom_dft.fused_exp_zoom(
+            torch.rand((2, 3, 128, 640), device=dev)[..., ::2], *args[1:],
+            precision="high")
 
 
 def test_zoom_kernel_takes_a_strided_view(dev):

@@ -31,6 +31,7 @@ from muse_psfr_tpu.config import TINY_CONFIG as JTINY  # noqa: E402
 from muse_psfr_tpu_torch import api as tapi  # noqa: E402
 from muse_psfr_tpu_torch.config import TINY_CONFIG  # noqa: E402
 from muse_psfr_tpu_torch.io.fits import fits_open  # noqa: E402
+from _one_thread import ENV, one_thread  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NIGHT = "muse_psfr_tpu_torch.examples.full_night"
@@ -39,7 +40,7 @@ LBDA = [500.0, 700.0, 900.0]
 
 
 def _run(args, cwd):
-    env = dict(os.environ, MUSE_PSFR_TINY="1", PYTHONPATH=ROOT)
+    env = dict(os.environ, MUSE_PSFR_TINY="1", PYTHONPATH=ROOT, **ENV)
     return subprocess.run([sys.executable, *args], env=env, cwd=str(cwd),
                           capture_output=True, text=True, timeout=300)
 
@@ -83,8 +84,9 @@ def test_sensitivity_sweep_matches_jax(tmp_path):
     assert (tmp_path / "sweep_progress.npy").exists()
     got = fits_open(str(tmp_path / "sweep.fits"))
     grid = (np.linspace(0.6, 1.6, 3), np.linspace(0.3, 0.9, 3), [25.0])
-    mine = tapi.condition_sweep(*grid, lbda=LBDA, cfg=TINY_CONFIG,
-                                device="cpu")
+    with one_thread():
+        mine = tapi.condition_sweep(*grid, lbda=LBDA, cfg=TINY_CONFIG,
+                                    device="cpu")
     want = japi.condition_sweep(*grid, lbda=LBDA, cfg=JTINY)
     for k in ("fwhm", "beta"):
         assert got[k.upper()].data.shape == (3, 3, 1, 3)

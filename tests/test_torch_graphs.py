@@ -52,6 +52,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from bench import build_rows  # noqa: E402
+from _one_thread import one_thread  # noqa: E402
 
 H = (100.0, 10000.0)
 LB = np.array([600.0, 750.0, 900.0])
@@ -156,10 +157,11 @@ def test_step_makes_no_host_copy_or_sync(monkeypatch, case, use_fft):
             torch.tensor(1, dtype=torch.int64),
             torch.as_tensor(LB, dtype=torch.float32),
             torch.as_tensor(lambda_crop_size(LB, cfg)))
-    first = tbatch._fit_chunk(*args, H, ws, npsflin, cfg, "float32")
-    _strict(monkeypatch)
-    again = tbatch._fit_chunk(*args, H, ws, npsflin, cfg, "float32")
-    monkeypatch.undo()
+    with one_thread():
+        first = tbatch._fit_chunk(*args, H, ws, npsflin, cfg, "float32")
+        _strict(monkeypatch)
+        again = tbatch._fit_chunk(*args, H, ws, npsflin, cfg, "float32")
+        monkeypatch.undo()
     for a, b in zip(first, again):
         assert torch.equal(a, b)
     assert torch.isfinite(first[1]).all()

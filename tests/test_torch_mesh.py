@@ -39,6 +39,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from bench import build_rows  # noqa: E402
+from _one_thread import ENV, one_thread  # noqa: E402
 
 F64 = dict(dtype="float64", fit_dtype="float64")
 #: tests/test_otf_support.py:CFG, the JAX package's mesh tests' config
@@ -361,16 +362,17 @@ def test_multihost_demo_on_the_cpu(tmp_path):
     out = subprocess.run(
         [sys.executable, "-m", "muse_psfr_tpu_torch.parallel.multihost_demo",
          "--device", "cpu", "--out", str(tmp_path)],
-        env=dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2"),
+        env=dict(os.environ, PYTHONPATH=ROOT, **ENV),
         cwd=tmp_path,
         capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "2 ranks agree bit for bit" in out.stdout
     res = np.load(tmp_path / "multihost_demo.npz")
     tel = (res["seeing"], res["GL"], res["L0"], res["gs_mask"])
-    single = tbatch.process_batch(*tel, **multihost_demo.night("cpu"))
-    # float64 in processes of other thread counts: the limits of
-    # tests/test_torch_batch.py for two float64 nights
+    with one_thread():             # as the ranks run
+        single = tbatch.process_batch(*tel, **multihost_demo.night("cpu"))
+    # float64 over two ranks and in one process, each on one thread: the
+    # limits of tests/test_torch_batch.py for two float64 nights
     assert np.abs(res["mean"] - single[1]).max() <= \
         1e-10 * np.abs(single[1]).max()
     rel = np.abs(res["fit"] - single[0]) / np.maximum(np.abs(single[0]),

@@ -16,6 +16,8 @@ from muse_psfr_tpu_torch.ops import _build, conv_dft, zoom_dft  # noqa: E402
 from muse_psfr_tpu_torch.parallel import batch  # noqa: E402
 from muse_psfr_tpu_torch.utils.device import resolve_device  # noqa: E402
 
+from _one_thread import one_thread  # noqa: E402
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = """
@@ -94,8 +96,9 @@ def test_cpu_nights_at_a_lower_tier_launch_nothing(cfg_kw):
     night = dict(lbda=[800.0, 900.0], chunk=1, device="cpu")
     tel = ([1.0], [0.7], [25.0], np.ones((1, 4)))
     cfg = TINY_CONFIG.with_(use_fft=False)
-    got = batch.process_batch(*tel, cfg=cfg.with_(**cfg_kw), **night)
-    want = batch.process_batch(*tel, cfg=cfg, **night)
+    with one_thread():
+        got = batch.process_batch(*tel, cfg=cfg.with_(**cfg_kw), **night)
+        want = batch.process_batch(*tel, cfg=cfg, **night)
     assert _build.launch_counts() == before
     for g, w in zip(got, want):
         assert np.array_equal(g, w)

@@ -7,7 +7,8 @@ within 2^-15 x sum|a||b| of the float64 product, "default" within 2^-7 of
 it and far worse than "high", "highest" the plain matmul bit for bit.  The
 plumbing: the two fields are read only where the card runs
 (``otf/psf.py:_mm``, ``otf/convolve.py:_conv_precision``), so a CPU night
-ignores them bit for bit; with the device rule lifted (monkeypatched) all
+splits no operand into bf16 parts and ignores them bit for bit (two
+nights on one intra-op thread); with the device rule lifted (monkeypatched) all
 three tiers run through the four contraction sites of the OTF chain and
 through the convolutions; K2 takes "highest" and "high" and raises on
 anything else.  Against the JAX package on the CPU (where XLA also
@@ -33,6 +34,8 @@ from muse_psfr_tpu_torch.ops.zoom_dft import matmul_tier, split_bf16  # noqa
 from muse_psfr_tpu_torch.otf import convolve as tconv  # noqa: E402
 from muse_psfr_tpu_torch.otf import psf as tpsf  # noqa: E402
 from muse_psfr_tpu_torch.parallel import batch as tbatch  # noqa: E402
+
+from _one_thread import one_thread  # noqa: E402
 
 LB = np.array([750.0, 800.0, 850.0, 900.0])
 TIERS = ("default", "high", "highest")
@@ -127,15 +130,28 @@ def test_fields_are_read_only_where_the_card_runs(tier):
 
 @pytest.mark.parametrize("field", ["matmul_precision", "conv_precision"])
 @pytest.mark.parametrize("tier", TIERS)
-def test_cpu_night_ignores_the_fields(field, tier):
+def test_cpu_night_ignores_the_fields(monkeypatch, field, tier):
     """Bit for bit the night at "highest": the CPU contracts in float32
-    whatever the fields say, as the JAX package's run off the TPU does."""
+    whatever the fields say, as the JAX package's run off the TPU does.
+    Directly: no operand of the night is split into bf16 parts, which
+    every tier below "highest" does (``matmul_tier``, the plain K1/K2 at
+    "high", through ``zoom_dft.split_bf16``)."""
     night = _night()
     kw = dict(cfg=TTINY.with_(use_fft=False, use_fused_conv=False), chunk=2,
               device="cpu")
-    want = tbatch.process_batch(*night, LB, **kw)
-    kw["cfg"] = kw["cfg"].with_(**{field: tier})
-    got = tbatch.process_batch(*night, LB, **kw)
+    splits = []
+
+    def spy(x, parts=2):
+        splits.append(tuple(x.shape))
+        return split(x, parts)
+
+    split = zoom_dft.split_bf16
+    with one_thread():
+        want = tbatch.process_batch(*night, LB, **kw)
+        monkeypatch.setattr(zoom_dft, "split_bf16", spy)
+        kw["cfg"] = kw["cfg"].with_(**{field: tier})
+        got = tbatch.process_batch(*night, LB, **kw)
+    assert splits == []
     for g, w in zip(got, want):
         assert np.array_equal(g, w)
 

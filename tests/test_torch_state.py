@@ -22,6 +22,7 @@ from muse_psfr_tpu_torch.core import coeff_l0  # noqa: E402
 from muse_psfr_tpu_torch.otf import psf as tpsf  # noqa: E402
 from muse_psfr_tpu_torch.parallel.batch import process_batch  # noqa: E402
 from muse_psfr_tpu_torch.psd import model as tpsd  # noqa: E402
+from _one_thread import one_thread  # noqa: E402
 
 H = (100, 10000)
 
@@ -73,10 +74,11 @@ def test_port_constants_equal_jax_tables():
 
 def test_loaded_jax_tables_leave_results_unchanged(restore_tables):
     tc = TTINY.with_(dtype="float64", fit_dtype="float64")
-    before = _run(tc)
-    state.load_reference_constants(
-        _jax_tables(JTINY.with_(dtype="float64")), tc, h=H)
-    after = _run(tc)
+    with one_thread():
+        before = _run(tc)
+        state.load_reference_constants(
+            _jax_tables(JTINY.with_(dtype="float64")), tc, h=H)
+        after = _run(tc)
     for a, b in zip(before, after):
         assert np.array_equal(a, b)
     # and the installed tables are the ones used: a changed coeffL0
