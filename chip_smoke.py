@@ -67,14 +67,18 @@ Phases (any failure raises, so the exit code is non-zero):
    ndir x the certified bound x max row-L1(A2) + 1e-5 of max|U|), with
    the times of each; K5 and K6 at "highest" beside the float32 FMA
    bodies (``tools/fma_bodies/``), distances and times in turns;
-7a. K1/K3/K5 on the wgmma body against the mma.sync body it replaced
-   (``tools/ab_zoom_tc.py``) at both precisions: the full-window chunk
-   (at "highest" also the exact group's six-pass chunk), ndir 9, K3 at
-   the TPU's and the CLI's shape (device times by CUDA-graph replay), K5
-   and the three 2048^2 window shapes on 25 rows: each body's error
-   against the plain version (the wgmma body held to 2e-6 / 1e-6), their
-   distance, times in turns (old, new, new, old); and the one-launch bf16
-   split of A2 (``csrc/zoom_dft.cu``) against ``split_bf16`` bit for bit;
+7a. K1/K3/K5 and K6 on their wgmma bodies against the mma.sync bodies
+   they replaced (``tools/ab_zoom_tc.py``) at both precisions: the
+   full-window chunk (at "highest" also the exact group's six-pass
+   chunk), ndir 9, K3 at the TPU's and the CLI's shape (device times by
+   CUDA-graph replay), K5, the three 2048^2 window shapes on 25 rows, and
+   K6 at ndir 9 on 4 x 35 in groups of 7 at degree 8 and at the caps
+   (groups of 8, degree 11), every timed call with its split of A2: each
+   body's error against the plain version (the wgmma body held to 2e-6 /
+   1e-6, and K6's to the mma.sync body bit for bit), their distance,
+   times in turns (old, new, new, old); and the
+   one-launch bf16 split of A2 (``csrc/zoom_dft.cu``) against
+   ``split_bf16`` bit for bit;
 8. the 1-direction bench night (100 rows x 35 wavelengths, 490-930 nm,
    chunk=50, FFT-free config, zoom_precision "high") through the auto
    planner: the plan equals ``tests/data/golden_plan_night100.json``,
@@ -299,8 +303,8 @@ Phases (any failure raises, so the exit code is non-zero):
     over 989 TFLOP/s, exponentials over the SFU's 16 a clock per SM), from
     this run's shapes; ``fma_body_ms`` on the "highest" records is the FMA
     body's time in turns, ``mma_sync_body_ms`` on K2 high's and on every
-    K1/K1'/K3/K5 record (``mma_sync_body_device_ms`` at the CLI shape) the
-    mma.sync body's of 17 and 7a, ``ab_ms``/``ab_device_ms`` the wgmma
+    K1/K1'/K3/K5/K6 record (``mma_sync_body_device_ms`` at the CLI shape)
+    the mma.sync body's of 17 and 7a, ``ab_ms``/``ab_device_ms`` the wgmma
     body's in the same turns, ``mma_sync_body_apart`` the two bodies'
     distance; the card line, and the final status line
     ``{"ok": true, "device": {...}}``.
@@ -320,7 +324,6 @@ import json
 import logging
 import os
 import shutil
-import socket
 import subprocess
 import sys
 import tempfile
@@ -1353,9 +1356,9 @@ def split_check(torch, dev):
 
 
 def zoom_ab_phase(torch, dev, rows, build):
-    """Phase 7a: K1/K3/K5 on the wgmma body against the mma.sync body it
-    replaced (``tools/mma_sync_bodies/zoom_dft_tc_mma.cu``, whose ``nvcc``
-    ``build`` ran beside the package's), at every shape of
+    """Phase 7a: K1/K3/K5 and K6 on their wgmma bodies against the
+    mma.sync bodies they replaced (``tools/mma_sync_bodies/``, whose
+    ``nvcc`` ``build`` ran beside the package's), at every shape of
     ``tools/ab_zoom_tc.py`` and both precisions: errors against the plain
     version, the bodies' distance, times in turns; and the split of A2.
     Returns {key: {precision: record}}."""
@@ -1364,9 +1367,10 @@ def zoom_ab_phase(torch, dev, rows, build):
     split_check(torch, dev)
     t0 = time.perf_counter()
     old = ab_zoom_tc.MmaSyncZoom(build)
-    print(f"the mma.sync body of K1/K3/K5 of tools/mma_sync_bodies/ ready "
-          f"after {time.perf_counter() - t0:.1f} s more (the yardstick of "
-          f"the wgmma body; the package never launches it)")
+    print(f"the mma.sync bodies of K1/K3/K5 and K6 of "
+          f"tools/mma_sync_bodies/ ready after "
+          f"{time.perf_counter() - t0:.1f} s more (the yardsticks of the "
+          f"wgmma bodies; the package never launches them)")
     return ab_zoom_tc.run(torch, dev, rows, old)
 
 
@@ -2238,7 +2242,10 @@ def mesh_phase(torch, cfg, user_cfg, rows, card, guard_log, night9):
     import torch.distributed as dist
     from muse_psfr_tpu_torch.ops import _build
     from muse_psfr_tpu_torch.parallel.batch import process_batch
-    from muse_psfr_tpu_torch.parallel.mesh import default_mesh, init_multihost
+    from muse_psfr_tpu_torch.parallel.mesh import (default_mesh,
+                                                   host_coordinator,
+                                                   init_multihost,
+                                                   shutdown_multihost)
     night = dict(lbda=LBDA, npsflin=1, cfg=cfg, chunk=50, device="cuda")
     out = {}
 
@@ -2293,10 +2300,8 @@ def mesh_phase(torch, cfg, user_cfg, rows, card, guard_log, night9):
 
     # one rank of NCCL: its gather runs once per chunk
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
-    with socket.socket() as sk:
-        sk.bind(("localhost", 0))
-        port = sk.getsockname()[1]
-    group = init_multihost(f"localhost:{port}", 1, 0)
+    store = host_coordinator(1)
+    group = init_multihost(f"localhost:{store.port}", 1, 0, hosted=True)
     gathers = [0]
     all_gather = dist.all_gather
 
@@ -2310,7 +2315,7 @@ def mesh_phase(torch, cfg, user_cfg, rows, card, guard_log, night9):
     finally:
         dist.all_gather = all_gather
         backend = dist.get_backend()
-        dist.destroy_process_group()
+        shutdown_multihost()
     mesh_launches(counts_n, group.size, f"one-rank {backend} group")
     print(f"one-rank {backend} group: {gathers[0]} gathers")
     if backend != "nccl" or gathers[0] < 1:
@@ -3207,8 +3212,11 @@ def main(argv):
                            (t3, "k3", "high"), (k3, "k3", "highest"),
                            (t3_cli, "k3_cli", "high"),
                            (k3_cli, "k3_cli", "highest"),
-                           (t5, "k5", "high"), (k5, "k5", "highest")):
+                           (t5, "k5", "high"), (k5, "k5", "highest"),
+                           (t6, "k6", "high"), (k6, "k6", "highest")):
         with_ab(rec, ab[key][prec])
+    for rec in (t6, k6):
+        rec["ptxas"] = ptxas_report("fused_exp_zoom_anchor_wg_kernel")
     stamp("kernels against their plain versions and the mma.sync body "
           "(phases 2-7a, 17)")
 

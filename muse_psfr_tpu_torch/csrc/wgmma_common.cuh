@@ -5,9 +5,11 @@
 // products with A from shared memory (SS) or from registers (RS), the
 // m64n160k16 and m64n40k16 RS products, the per-warpgroup named barrier,
 // and the pieces of a TMA pipeline: mbarriers, tensor-map loads,
-// setmaxnreg.  K2 at "high" (conv_dft_tc.cu) uses the first group;
-// K1/K3/K5 (zoom_dft_tc.cu) the wider RS products, the 64-byte-swizzle
-// descriptor and the pipeline.
+// setmaxnreg; and on the host the tensor maps of the TMA loads.  K2 at
+// "high" (conv_dft_tc.cu) uses the first group; K1/K3/K5 (zoom_dft_tc.cu)
+// the wider RS products, the 64-byte-swizzle descriptor and the pipeline;
+// K6 (zoom_anchor_tc.cu) the m64n24k16 SS product with both operands in
+// the 64-byte-swizzle layout, and the pipeline.
 //
 // Operand layout (K-major, no swizzle).  A tile of R rows (the M rows of an
 // A operand, or the N columns of a B operand) by 64 contraction values k is
@@ -95,6 +97,12 @@ __device__ __forceinline__ void warpgroup_bar(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
+// barrier `id` (1..15) over the first `threads` threads of the block (a
+// multiple of 32)
+__device__ __forceinline__ void named_bar(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // d (+)= A . B on a 64 x 32 x 16 bf16 product, float32 accumulators; A and
 // B from shared memory (K-major descriptors); `accumulate` 0 overwrites d
 __device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16],
@@ -138,6 +146,26 @@ __device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16],
         "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(accumulate));
+}
+
+// d (+)= A . B on a 64 x 24 x 16 bf16 product, float32 accumulators; A and
+// B from shared memory (K-major descriptors); `accumulate` 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n24k16_ss(float (&d)[12],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
+      "%12, %13, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
 // descriptor of a 64-byte-swizzle K-major operand at shared address `addr`
@@ -301,6 +329,50 @@ __device__ __forceinline__ void reg_alloc() {
 template <int N>
 __device__ __forceinline__ void reg_dealloc() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ---- host side: tensor maps ----------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, through the runtime (no libcuda at
+// link time)
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a tensor map of `rank` dimensions (innermost first; strides in bytes of
+// dimensions 1..rank-1), boxes of `box`, zeros outside the tensor
+inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+              const void* ptr, const cuuint64_t* dims,
+              const cuuint64_t* strides, const cuuint32_t* box,
+              CUtensorMapSwizzle swizzle) {
+  const EncodeTiled enc = encode_tiled();
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  return enc != nullptr &&
+         enc(map, type, rank, const_cast<void*>(ptr), dims, strides, box,
+             ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

@@ -476,48 +476,6 @@ fused_exp_zoom_wg_kernel(const __grid_constant__ CUtensorMap map_a0,
 
 // ---- host side ---------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled, through the runtime (no libcuda at
-// link time)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a tensor map of `rank` dimensions (innermost first; strides in bytes of
-// dimensions 1..rank-1), boxes of `box`, zeros outside the tensor
-bool make_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
-              const void* ptr, const cuuint64_t* dims,
-              const cuuint64_t* strides, const cuuint32_t* box,
-              CUtensorMapSwizzle swizzle) {
-  const EncodeTiled enc = encode_tiled();
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
-  return enc != nullptr &&
-         enc(map, type, rank, const_cast<void*>(ptr), dims, strides, box,
-             ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 struct ZoomArgs {
   const float *dphi, *dl;
   const void* a2[3];

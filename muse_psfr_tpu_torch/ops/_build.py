@@ -80,14 +80,14 @@ _SIGNATURES = {
     + [_P],
     # x, its parts p0, p1, p2 (or null), rows, n, n_pad, stream
     "muse_split_bf16": [_P] * 4 + [ctypes.c_longlong] + [_I] * 2 + [_P],
-    # dphi, dl, a2, centre, astar, coef, u, 3 dphi strides, B, ndir, n,
-    # ncols, nl, m2, group, deg1, stream
-    "muse_fused_exp_zoom_anchor": [_P] * 7 + [ctypes.c_longlong] * 3
-    + [_I] * 8 + [_P],
-    # dphi, dl, a2_hi, a2_lo, centre, astar, coef, u, 3 dphi strides, B,
-    # ndir, n, ncols, nl, m2, group, deg1, stream
+    # dphi, dl, A2's three bf16 parts, centre, astar, coef, u, 3 dphi
+    # strides, B, ndir, n, ncols, nl, m2, n_pad, group, deg1, and the
+    # launch plan: stages, staged; stream
+    "muse_fused_exp_zoom_anchor": [_P] * 9 + [ctypes.c_longlong] * 3
+    + [_I] * 11 + [_P],
+    # the same with A2's two bf16 parts (hi, lo)
     "muse_fused_exp_zoom_anchor_tc": [_P] * 8 + [ctypes.c_longlong] * 3
-    + [_I] * 8 + [_P],
+    + [_I] * 11 + [_P],
     # planes, gtt_r, gtt_i, gi_r, gi_i, C, S, out, B, nl, n, L, off, stream
     "muse_fused_conv_chain": [_P] * 8 + [_I] * 5 + [_P],
     # the same with the persistent grid's blocks before the stream

@@ -77,8 +77,17 @@ MAX_WARPGROUPS, MAX_STAGES = 2, 4
 SMEM_LIMIT, SMEM_BARRIERS, SMEM_SLACK = 232448, 16 * 4, 1024
 
 #: K6 limits (``KB``/``DMAX`` of csrc/zoom_anchor_tc.cu): wavelengths per
-#: group, whose A2 tiles a block stages together, and Taylor degree
+#: group, all of which one block serves, and Taylor degree
 ANCHOR_MAX_GROUP, ANCHOR_MAX_DEGREE = 8, 11
+#: K6's launch plan (csrc/zoom_anchor_tc.cu): output columns of a block
+#: (``TJ``), A2 rows of a block (``TIB``: three 64-row products), A2 rows of
+#: a TMA box (``BOX_ROWS``), most stages of the A2 ring (half to each
+#: warpgroup), and the static shared memory of its barriers and
+#: coefficients
+ANCHOR_N_TILE, ANCHOR_M_ROWS, ANCHOR_BOX_ROWS = 24, 192, 32
+ANCHOR_MAX_STAGES = 8
+ANCHOR_SMEM_STATIC = (8 * (2 * ANCHOR_MAX_STAGES + 2)
+                      + 4 * ANCHOR_MAX_GROUP * (ANCHOR_MAX_DEGREE + 1))
 
 _LOG2E = float(np.log2(np.e))
 
@@ -255,17 +264,6 @@ def _check_splits(n, row_splits):
                          "contraction rows into slices of a multiple of 32")
 
 
-def _check_rows(name, n, precision):
-    """K6 stages A2 by 16-byte copies: rows of 8 bf16 values at "high", of
-    4 float32 values at "highest" (K1/K3/K5 pad A2's bf16 parts
-    instead, :func:`_a2_parts`)."""
-    per = 8 if precision == "high" else 4
-    if n % per:
-        raise ValueError(f"{name}: the kernel stages A2 in rows of {per} "
-                         f"values at {precision!r}; {n} contraction rows "
-                         f"are not a multiple of {per}")
-
-
 class ZoomLaunchPlan(NamedTuple):
     """How ``csrc/zoom_dft_tc.cu`` runs one K1/K3/K5 launch
     (:func:`tc_launch_plan`)."""
@@ -338,12 +336,13 @@ def tc_launch_plan(B, ndir, n, ncols, nl, m2, row_splits=1,
 
 def _a2_parts(a2, parts, n_pad):
     """A2's bf16 parts (:func:`split_bf16`, bit for bit), each (nl, m2,
-    n_pad), zero past A2's own rows, made on the card by one launch of
-    ``csrc/zoom_dft.cu:split_bf16``: once per launch, never per row in the
-    kernel (they depend on the wavelengths only)."""
+    n_pad), zero past A2's own rows, one after the other in one tensor
+    (K6 stages every part of a step in one box), made on the card by one
+    launch of ``csrc/zoom_dft.cu:split_bf16``: once per launch, never per
+    row in the kernel (they depend on the wavelengths only)."""
     nl, m2, n = a2.shape
-    out = [torch.empty((nl, m2, n_pad), dtype=torch.bfloat16,
-                       device=a2.device) for _ in range(parts)]
+    out = list(torch.empty((parts, nl, m2, n_pad), dtype=torch.bfloat16,
+                           device=a2.device))
     err = _build.library().muse_split_bf16(
         a2.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
         out[2].data_ptr() if parts == 3 else 0, nl * m2, n, n_pad,
@@ -528,6 +527,59 @@ def fused_exp_zoom_disc(dphi, dl, a2, alpha, w, block_mask, exp2=False,
 
 # ---- K6: the anchored-Taylor damping -------------------------------------
 
+class AnchorLaunchPlan(NamedTuple):
+    """How ``csrc/zoom_anchor_tc.cu`` runs one K6 launch
+    (:func:`anchor_launch_plan`)."""
+    stages: int           # buffers of the A2 ring (one wavelength's step;
+    #                       even, half to each warpgroup)
+    staged: bool          # D and dl by TMA (else read from device memory)
+    stage_bytes: int      # one A2 stage
+    g_bytes: int          # the double-buffered G tiles of the group
+    d_stage_bytes: int    # the D stage (when staged)
+    smem: int             # dynamic shared memory a block
+    grid: tuple           # (column tiles x A2 row blocks x groups, B)
+    threads: int          # two warpgroups
+    n_pad: int            # A2's contraction rows, padded to 8
+    operands: dict        # {operand: "tma" or "direct"}
+
+
+def anchor_launch_plan(B, ndir, n, ncols, nl, m2, group, precision="high",
+                       aligned=True):
+    """The launch plan of K6 (``csrc/zoom_anchor_tc.cu``, which checks
+    it): a block serves one row, one group of wavelengths, 24 output
+    columns and 192 rows of A2.  Its shared memory holds the double-
+    buffered G tiles of the group (24 x 32 bf16 per wavelength and part),
+    the row's centre values, a ring of A2 stages, each one wavelength's
+    step (its 2 parts at "high", 3 at "highest", in 32-row boxes of 32
+    bf16), and, when D is ``aligned`` for TMA (:func:`tma_aligned`) and a
+    D stage leaves room for two A2 stages, one stage of D's 24 x 32 tile
+    in every direction and of dl's (refilled as soon as a step's power
+    sums have read it); else D and dl are read from device memory (the
+    direct path).  Then as many A2 stages as fit, an even number (each of
+    the two warpgroups owns half), at most :data:`ANCHOR_MAX_STAGES`.
+    A2's rows past 192 take more blocks."""
+    check_precision(precision)
+    parts = 2 if precision == "high" else 3
+    nbox = -(-min(ANCHOR_M_ROWS, m2) // ANCHOR_BOX_ROWS)
+    a_stage = parts * nbox * ANCHOR_BOX_ROWS * K_STEP * 2
+    g = 2 * group * parts * ANCHOR_N_TILE * K_STEP * 2
+    d_stage = (ndir + 1) * K_STEP * ANCHOR_N_TILE * 4
+    centre = -(-ndir // 4) * 16
+    room = SMEM_LIMIT - ANCHOR_SMEM_STATIC - SMEM_SLACK - g - centre
+    staged = bool(aligned and ndir <= 256 and room - d_stage >= 2 * a_stage)
+    if staged:
+        room -= d_stage
+    stages = min(ANCHOR_MAX_STAGES, room // a_stage) // 2 * 2
+    how = "tma" if staged else "direct"
+    nib = -(-m2 // ANCHOR_M_ROWS)
+    return AnchorLaunchPlan(
+        stages, staged, a_stage, g, d_stage,
+        stages * a_stage + g + (d_stage if staged else 0) + centre
+        + SMEM_SLACK,
+        (-(-ncols // ANCHOR_N_TILE) * nib * -(-nl // group), B), 256,
+        -(-n // 8) * 8, {"a2": "tma", "dphi": how, "dl": how})
+
+
 def _anchor_shapes(dphi, a2, centre, astar, coef, group):
     B, ndir = dphi.shape[0], dphi.shape[1]
     nl, deg1 = coef.shape
@@ -582,7 +634,8 @@ def fused_exp_zoom_anchor(dphi, dl, a2, centre, astar, coef, group,
     """K6 on the tensors' device: for CUDA tensors (float32 only; groups of
     at most :data:`ANCHOR_MAX_GROUP` wavelengths, degree at most
     :data:`ANCHOR_MAX_DEGREE`; anything else raises) the tensor-core kernel
-    (``csrc/zoom_anchor_tc.cu``) with the three passes of
+    (``csrc/zoom_anchor_tc.cu``, warpgroup products fed by TMA in the
+    launch plan of :func:`anchor_launch_plan`) with the three passes of
     ``precision="high"`` or the six of "highest", for CPU tensors
     :func:`fused_exp_zoom_anchor_reference` at ``precision``.  Counterpart
     of the JAX package's ``fused_exp_zoom_anchor``, with every group of
@@ -610,23 +663,23 @@ def fused_exp_zoom_anchor(dphi, dl, a2, centre, astar, coef, group,
                           unit_stride_only=True)
     if B > 65535:
         raise ValueError(f"fused_exp_zoom_anchor: grid too large (B={B})")
-    _check_rows("fused_exp_zoom_anchor", n, precision)
+    plan = anchor_launch_plan(
+        B, ndir, n, ncols, nl, m2, group, precision,
+        tma_aligned(dphi.data_ptr(), dphi.shape, dphi.stride(),
+                    dl.data_ptr()))
     u = torch.empty((B, nl, m2, ncols), dtype=torch.float32,
                     device=dphi.device)
     sb, sd, sr, _ = dphi.stride()
     stream = torch.cuda.current_stream(dphi.device).cuda_stream
-    if precision == "high":
-        a2_hi, a2_lo = split_bf16(a2)       # once per launch, as for K1
-        err = _build.library().muse_fused_exp_zoom_anchor_tc(
-            dphi.data_ptr(), dl.data_ptr(), a2_hi.data_ptr(),
-            a2_lo.data_ptr(), centre.data_ptr(), astar.data_ptr(),
-            coef.data_ptr(), u.data_ptr(), sb, sd, sr, B, ndir, n, ncols, nl,
-            m2, group, deg1, stream)
-    else:
-        err = _build.library().muse_fused_exp_zoom_anchor(
-            dphi.data_ptr(), dl.data_ptr(), a2.data_ptr(), centre.data_ptr(),
-            astar.data_ptr(), coef.data_ptr(), u.data_ptr(), sb, sd, sr, B,
-            ndir, n, ncols, nl, m2, group, deg1, stream)
+    parts = _a2_parts(a2, 2 if precision == "high" else 3, plan.n_pad)
+    lib = _build.library()
+    entry = (lib.muse_fused_exp_zoom_anchor_tc if precision == "high"
+             else lib.muse_fused_exp_zoom_anchor)
+    err = entry(
+        dphi.data_ptr(), dl.data_ptr(), *(p.data_ptr() for p in parts),
+        centre.data_ptr(), astar.data_ptr(), coef.data_ptr(), u.data_ptr(),
+        sb, sd, sr, B, ndir, n, ncols, nl, m2, plan.n_pad, group, deg1,
+        plan.stages, int(plan.staged), stream)
     _build.check_launch(err, "fused_exp_zoom_anchor")
     if precision == "high":
         TC_ANCHOR_LAUNCHES += 1

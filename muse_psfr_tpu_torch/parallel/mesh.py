@@ -134,25 +134,46 @@ def _checked(mesh: Mesh) -> Mesh:
     return mesh
 
 
+def host_coordinator(num_processes, host="localhost"):
+    """A rendezvous store for ``num_processes`` ranks on a port that the
+    OS picks, held by the calling process, which takes no rank.  Start
+    each rank with ``init_multihost(f"{host}:{store.port}", ...,
+    hosted=True)`` and keep the store alive until they have joined.  The
+    port is bound before any rank starts, so no other process can take it
+    in between, as it can a port found free and let go."""
+    return dist.TCPStore(host, 0, num_processes, is_master=True,
+                         wait_for_workers=False)
+
+
 def init_multihost(coordinator_address=None, num_processes=None,
-                   process_id=None, *, device="cuda", backend=None) -> Mesh:
+                   process_id=None, *, device="cuda", backend=None,
+                   hosted=False) -> Mesh:
     """Join the process group (one process per device) and return this
     rank's share of the global mesh (:func:`default_mesh` over its
     device).
 
     With ``coordinator_address`` (``host:port``) the group meets there,
-    ``num_processes`` ranks, this one ``process_id``; without it the
-    ``env://`` variables that ``torchrun`` sets are read.  ``backend=None``
-    is ``"nccl"`` for CUDA and ``"gloo"`` for the CPU.  NCCL refuses two
-    ranks on one card; such a layout needs ``backend="gloo"``.  A CUDA
-    rank's device is ``cuda:{LOCAL_RANK}``, else ``cuda:{rank % device
-    count}``.  Call it once per process, before the first night."""
+    ``num_processes`` ranks, this one ``process_id``: rank 0 serves the
+    rendezvous there, or, with ``hosted=True``, every rank joins the store
+    of :func:`host_coordinator`.  Without it the ``env://`` variables that
+    ``torchrun`` sets are read.  ``backend=None`` is ``"nccl"`` for CUDA
+    and ``"gloo"`` for the CPU.  NCCL refuses two ranks on one card; such
+    a layout needs ``backend="gloo"``.  A CUDA rank's device is
+    ``cuda:{LOCAL_RANK}``, else ``cuda:{rank % device count}``.  Call it
+    once per process, before the first night, and
+    :func:`shutdown_multihost` after the last."""
     kind = torch.device(device).type
     if kind == "cuda":
         resolve_device("cuda")
     if backend is None:
         backend = "nccl" if kind == "cuda" else "gloo"
-    if coordinator_address is not None:
+    if coordinator_address is not None and hosted:
+        host, port = coordinator_address.split("://")[-1].rsplit(":", 1)
+        store = dist.TCPStore(host, int(port), num_processes,
+                              is_master=False)
+        dist.init_process_group(backend, store=store,
+                                world_size=num_processes, rank=process_id)
+    elif coordinator_address is not None:
         url = (coordinator_address if "://" in coordinator_address
                else "tcp://" + coordinator_address)
         dist.init_process_group(backend, init_method=url,
@@ -166,3 +187,13 @@ def init_multihost(coordinator_address=None, num_processes=None,
         dev = torch.device("cuda", local_rank)
         torch.cuda.set_device(dev)
     return default_mesh([dev])
+
+
+def shutdown_multihost():
+    """Leave the process group that :func:`init_multihost` joined, after a
+    barrier, so that every rank tears it down and none while another still
+    uses it; nothing when no group is up.  A rank that exits with its
+    group up can abort in gloo's teardown after its work is done."""
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()

@@ -24,7 +24,6 @@ results, its telemetry and every rank's walls and launch counts in
 import argparse
 import json
 import os
-import socket
 import subprocess
 import sys
 import tempfile
@@ -56,9 +55,9 @@ def worker(rank, nproc, port, device, backend, rows, repeat, out):
     import torch.distributed as dist
     from ..ops import _build
     from .batch import process_batch
-    from .mesh import init_multihost
+    from .mesh import init_multihost, shutdown_multihost
     mesh = init_multihost(f"localhost:{port}", nproc, rank, device=device,
-                          backend=backend)
+                          backend=backend, hosted=True)
     tel = night_rows(rows)
     kw = night(device)
     _build.reset_launch_counts()
@@ -77,7 +76,7 @@ def worker(rank, nproc, port, device, backend, rows, repeat, out):
           f"{mesh.backend} mesh {[str(d) for d in mesh.devices]}; fit "
           f"{fit.shape}, mean PSF {mean.shape}; launches {counts}",
           flush=True)
-    dist.destroy_process_group()
+    shutdown_multihost()
 
 
 def run(nproc=2, device="cpu", backend=None, rows=8, repeat=0, out=None,
@@ -85,15 +84,14 @@ def run(nproc=2, device="cpu", backend=None, rows=8, repeat=0, out=None,
     """Spawn ``nproc`` ranks of :func:`worker`, check that they agree bit
     for bit, and return rank 0's ``(fit, mean, fitm)`` with every rank's
     walls and launch counts."""
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
+    from .mesh import host_coordinator
+    store = host_coordinator(nproc)   # held until every rank is done
     with tempfile.TemporaryDirectory() as tmp:
         paths = [os.path.join(tmp, f"rank{r}.npz") for r in range(nproc)]
         cmd = [sys.executable, "-m", _MODULE, "--worker"]
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             [_ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-        procs = [subprocess.Popen(cmd + [str(r), str(nproc), str(port),
+        procs = [subprocess.Popen(cmd + [str(r), str(nproc), str(store.port),
                                          device, backend or "", str(rows),
                                          str(repeat), paths[r]], env=env)
                  for r in range(nproc)]

@@ -27,6 +27,7 @@ from muse_psfr_tpu_torch.config import TINY_CONFIG as TTINY  # noqa: E402
 from muse_psfr_tpu_torch.config import GalacsiConfig as TConfig  # noqa: E402
 from muse_psfr_tpu_torch.ops import zoom_dft as tzoom  # noqa: E402
 from muse_psfr_tpu_torch.otf import psf as tpsf  # noqa: E402
+from _one_thread import one_thread  # noqa: E402
 
 BENCH = np.linspace(490.0, 930.0, 35)
 MUSE = np.linspace(465.0, 930.0, 35)
@@ -53,11 +54,17 @@ def _kernel_inputs(B=2, ndir=9, nl=7, degree=8, n=256, m2=32, seed=7,
 
 def test_plain_k6_matches_pallas_interpret():
     """ndir 9, n 256, nl 7, degree 8: the plain version against the TPU
-    kernel fed the shifted structure function, <= 1e-6 x max|U|."""
+    kernel fed the shifted structure function, <= 1e-6 x max|U|.  The
+    plain version runs on one intra-op thread: the first CPU
+    ``torch.exp`` of a process, split over OpenMP threads under load,
+    can return one thread's chunk less accurate (up to 1.5e-4 relative,
+    ``tools/exp_first_call.py``; here 4.149e-06 of max|U|, while the JAX
+    kernel's bits did not move); on one thread it never did."""
     dphi, dl, a2, centre, astar, coef = _kernel_inputs()
-    got = tzoom.fused_exp_zoom_anchor_reference(
-        *(torch.as_tensor(x) for x in (dphi, dl, a2, centre)),
-        torch.as_tensor([astar]), torch.as_tensor(coef), 7).numpy()
+    with one_thread():
+        got = tzoom.fused_exp_zoom_anchor_reference(
+            *(torch.as_tensor(x) for x in (dphi, dl, a2, centre)),
+            torch.as_tensor([astar]), torch.as_tensor(coef), 7).numpy()
     assert got.shape == (2, 7, 32, 256)
     for b in range(2):
         want = np.asarray(jzoom.fused_exp_zoom_anchor(

@@ -255,19 +255,15 @@ def test_disc_kernel_matches_plain(dev, R):
     assert _rel(got, k1) <= 2e-6
 
 
-@pytest.mark.parametrize("ndir", [1, 9])
-def test_anchor_kernel_matches_plain(dev, ndir):
-    """K6 at "highest" (six passes) on 10 wavelengths in groups of 4 (the
-    last one ragged), degree 8, with Taylor coefficients of a MUSE-like
-    alpha spread, 200 output rows (two row blocks) and 200 columns (a
-    partial column tile); a group of 8, the cap, fits its shared memory;
-    bit-identical on a rerun."""
+def _anchor_args(dev, B, ndir, n, ncols, m2, nl, k, deg, pad=0, seed=4):
+    """K6's operands (dphi with ``pad`` more columns, for views) as the
+    tests below build them: D - centre >= 0 as for a structure function
+    and its centre value, deep enough that the anchor exponential
+    underflows in places; Taylor coefficients of a MUSE-like alpha
+    spread."""
     from math import factorial
-    g = torch.Generator(device="cpu").manual_seed(4)
-    B, n, ncols, m2, nl, k, deg = 2, 256, 200, 200, 10, 4, 8
-    # D - centre >= 0 as for a structure function and its centre value,
-    # deep enough that the anchor exponential underflows in places
-    dphi = torch.rand((B, ndir, n, ncols), generator=g) * 1000
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    dphi = torch.rand((B, ndir, n, ncols + pad), generator=g) * 1000
     dl = torch.rand((n, ncols), generator=g)
     a2 = torch.randn((nl, m2, n), generator=g) / n
     centre = dphi.amin(dim=(2, 3)).contiguous()
@@ -277,14 +273,46 @@ def test_anchor_kernel_matches_plain(dev, ndir):
     rho1 = alpha / torch.repeat_interleave(astar, k)[:nl] - 1.0
     coef = torch.stack([rho1 ** j / factorial(j) for j in range(deg + 1)],
                        dim=1) / ndir
-    args = [x.to(dev) for x in (dphi, dl, a2, centre, astar, coef)]
+    return [x.to(dev) for x in (dphi, dl, a2, centre, astar, coef)]
+
+
+def _anchor_envelope(dev, ndir, precision):
+    """K6 at the edges of what it takes, against its plain version at
+    ``precision``: groups of 8 at degree 11 (the caps) on 250 contraction
+    rows (not a multiple of 8: A2's parts are padded), 35 wavelengths in 5
+    groups of 7 on 1000 rows (the planner's groups, the last step partial),
+    and D as a strided view, 16-byte aligned (staged by TMA) and not
+    (read from device memory); each bit-identical on a rerun."""
+    for n, nl, k, deg in ((250, 16, 8, 11), (1000, 35, 7, 8)):
+        args = _anchor_args(dev, 1, ndir, n, 72, 160, nl, k, deg, pad=8)
+        for view in (args[0][..., :72], args[0][..., 4:76],
+                     args[0][..., 1:73]):
+            a6 = [view] + args[1:] + [k]
+            got = zoom_dft.fused_exp_zoom_anchor(*a6, precision=precision)
+            want = zoom_dft.fused_exp_zoom_anchor_reference(
+                view.contiguous(), *args[1:], k, precision=precision)
+            assert _rel(got, want) <= (2e-6 if precision == "high"
+                                       else 1e-6), (n, k, deg)
+            assert torch.equal(got, zoom_dft.fused_exp_zoom_anchor(
+                *a6, precision=precision))
+
+
+@pytest.mark.parametrize("ndir", [1, 9])
+def test_anchor_kernel_matches_plain(dev, ndir):
+    """K6 at "highest" (six passes) on 10 wavelengths in groups of 4 (the
+    last one ragged), degree 8, with Taylor coefficients of a MUSE-like
+    alpha spread, 200 output rows (two row blocks) and 200 columns (a
+    partial column tile); a group of 8, the cap, fits its shared memory;
+    bit-identical on a rerun; and the envelope (:func:`_anchor_envelope`)."""
+    B, n, ncols, m2, nl, k, deg = 2, 256, 200, 200, 10, 4, 8
+    args = _anchor_args(dev, B, ndir, n, ncols, m2, nl, k, deg)
     before = zoom_dft.ANCHOR_LAUNCHES
     got = zoom_dft.fused_exp_zoom_anchor(*args, k)
     assert zoom_dft.ANCHOR_LAUNCHES == before + 1
     assert _rel(got, zoom_dft.fused_exp_zoom_anchor_reference(*args, k)) \
         <= 2e-6
     assert torch.equal(got, zoom_dft.fused_exp_zoom_anchor(*args, k))
-    astar8 = torch.stack([astar[0], astar[-1]]).to(dev)
+    astar8 = torch.stack([args[4][0], args[4][-1]])
     for prec in ("highest", "high"):
         got8 = zoom_dft.fused_exp_zoom_anchor(*args[:4], astar8, args[5], 8,
                                               precision=prec)
@@ -292,6 +320,7 @@ def test_anchor_kernel_matches_plain(dev, ndir):
             *args[:4], astar8, args[5], 8, precision=prec)) <= 2e-6
     with pytest.raises(ValueError, match="at most"):
         zoom_dft.fused_exp_zoom_anchor(*args[:4], args[4][:2], args[5], 9)
+    _anchor_envelope(dev, ndir, "highest")
 
 
 @pytest.mark.parametrize("ndir", [1, 9])
@@ -301,21 +330,9 @@ def test_tc_anchor_kernel_matches_plain_high(dev, ndir):
     16-column tile) and on a strided view: against its 3-pass plain version
     <= 2e-6 of max|U|, against K6 at "highest" <= 2e-5 (the split's own error
     on these cancelling random inputs); counted on its own counter only;
-    bit-identical on a rerun."""
-    from math import factorial
-    g = torch.Generator(device="cpu").manual_seed(4)
+    bit-identical on a rerun; and the envelope (:func:`_anchor_envelope`)."""
     B, n, ncols, m2, nl, k, deg = 2, 256, 200, 200, 10, 4, 8
-    dphi = torch.rand((B, ndir, n, ncols + 8), generator=g) * 1000
-    dl = torch.rand((n, ncols), generator=g)
-    a2 = torch.randn((nl, m2, n), generator=g) / n
-    centre = dphi.amin(dim=(2, 3)).contiguous()
-    alpha = -0.1 * (1.0 + 0.5 * torch.linspace(0, 1, nl))
-    astar = torch.stack([0.5 * (alpha[i:i + k].min() + alpha[i:i + k].max())
-                         for i in range(0, nl, k)])
-    rho1 = alpha / torch.repeat_interleave(astar, k)[:nl] - 1.0
-    coef = torch.stack([rho1 ** j / factorial(j) for j in range(deg + 1)],
-                       dim=1) / ndir
-    args = [x.to(dev) for x in (dphi, dl, a2, centre, astar, coef)]
+    args = _anchor_args(dev, B, ndir, n, ncols, m2, nl, k, deg, pad=8)
     for view in (args[0][..., :ncols].contiguous(), args[0][..., 8:]):
         a6 = [view] + args[1:]
         before = _build.launch_counts()
@@ -330,6 +347,7 @@ def test_tc_anchor_kernel_matches_plain_high(dev, ndir):
     with pytest.raises(ValueError, match="at most"):
         zoom_dft.fused_exp_zoom_anchor(*args[:4], args[4][:2], args[5], 9,
                                        precision="high")
+    _anchor_envelope(dev, ndir, "high")
 
 
 @pytest.mark.parametrize("B,nl,n", [(2, 3, 8), (3, 35, 40)])
@@ -355,9 +373,12 @@ def test_night_runs_both_kernels(dev):
     fit, psf_mean, _ = process_batch(*args, cfg=cfg, chunk=2, device="cuda")
     counts = _build.launch_counts()
     # 2 rows x 2 wavelengths of TINY fill 16 blocks: the zoom runs as K3,
-    # with the three passes of the default zoom_precision "high"
+    # with the three passes of the default zoom_precision "high"; the third
+    # row (L0 = 2.0 m < 2.5) is the exact structure-function group, which
+    # contracts at six passes on the card (otf/psf.py:_zoom_precision):
+    # one six-pass K3 launch of its own
     assert counts["zoom_dft_tc_rowsplit"] > 0 and counts["conv_dft"] > 0
-    assert counts["zoom_dft"] == counts["zoom_dft_rowsplit"] == 0
+    assert counts["zoom_dft"] == 0 and counts["zoom_dft_rowsplit"] == 1
     ref = process_batch(*args, cfg=cfg, chunk=2, device="cpu")
     assert np.abs(psf_mean - ref[1]).max() <= 1e-5 * np.abs(ref[1]).max()
     assert np.all(fit[..., -1] == 1.0)

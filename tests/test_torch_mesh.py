@@ -8,7 +8,6 @@ processes through ``torch.distributed`` with gloo
 (``tests/test_parallel.py`` is the JAX package's counterpart)."""
 
 import os
-import socket
 import subprocess
 import sys
 
@@ -33,7 +32,7 @@ from muse_psfr_tpu_torch.io.table import FitTable  # noqa: E402
 from muse_psfr_tpu_torch.parallel import batch as tbatch  # noqa: E402
 from muse_psfr_tpu_torch.parallel import multihost_demo  # noqa: E402
 from muse_psfr_tpu_torch.parallel.mesh import (  # noqa: E402
-    ROWS, default_mesh, rows_sharding)
+    ROWS, default_mesh, host_coordinator, rows_sharding)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -238,17 +237,14 @@ def test_dryrun_multichip():
     assert fit.shape[:2] == (8, 2) and np.all(np.isfinite(mean))
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _run_ranks(script, n=2, timeout=240):
-    """Run ``script`` (a worker taking its rank as argv[1]) in ``n``
+    """Run ``script`` (a worker taking its rank as argv[1] and the port
+    of the coordinator that this process holds as argv[2]) in ``n``
     processes; each gets its own timeout and is killed on expiry."""
+    store = host_coordinator(n)
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2")
-    procs = [subprocess.Popen([sys.executable, str(script), str(r)],
+    procs = [subprocess.Popen([sys.executable, str(script), str(r),
+                               str(store.port)],
                               env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for r in range(n)]
@@ -272,9 +268,11 @@ def test_init_multihost_collective_two_processes(tmp_path):
 import sys
 import torch
 from muse_psfr_tpu_torch.parallel.batch import _replicate_for_host
-from muse_psfr_tpu_torch.parallel.mesh import default_mesh, init_multihost
+from muse_psfr_tpu_torch.parallel.mesh import (default_mesh, init_multihost,
+                                               shutdown_multihost)
 rank = int(sys.argv[1])
-one = init_multihost('localhost:{_free_port()}', 2, rank, device='cpu')
+one = init_multihost('localhost:' + sys.argv[2], 2, rank, device='cpu',
+                     hosted=True)
 assert (one.size, one.rank, one.world, one.backend) == (2, rank, 2, 'gloo')
 mesh = default_mesh(['cpu', 'cpu'])
 assert mesh.size == 4 and len(mesh.local) == 2
@@ -284,6 +282,7 @@ cpu = torch.device('cpu')
 parts = _replicate_for_host(mesh, cpu, [(torch.tensor(1.0 + rank),)] * 2)
 tot = sum(float(p[0]) for p in parts)
 assert tot == 6.0, tot
+shutdown_multihost()
 print('MULTIHOST_OK', rank)
 """)
     outs = _run_ranks(worker)
@@ -303,9 +302,11 @@ import sys
 import numpy as np
 from muse_psfr_tpu_torch.config import GalacsiConfig
 from muse_psfr_tpu_torch.parallel.batch import process_batch
-from muse_psfr_tpu_torch.parallel.mesh import default_mesh, init_multihost
+from muse_psfr_tpu_torch.parallel.mesh import (default_mesh, init_multihost,
+                                               shutdown_multihost)
 rank = sys.argv[1]
-init_multihost('localhost:{_free_port()}', 2, int(rank), device='cpu')
+init_multihost('localhost:' + sys.argv[2], 2, int(rank), device='cpu',
+               hosted=True)
 mesh = default_mesh(['cpu', 'cpu'])
 cfg = GalacsiConfig(dim=512, dim_pup=24, dimpsf=12, dtype='float64',
                     fit_dtype='float64')
@@ -327,6 +328,7 @@ b = process_batch(
 assert calls.count([0, 1, 2, 3]) == 2, calls
 np.savez(r'{tmp_path}/rank' + rank + '.npz', fit_a=a[0], mean_a=a[1],
          fitm_a=a[2], fit_b=b[0], mean_b=b[1])
+shutdown_multihost()
 print('MH_PIPELINE_OK', rank)
 """)
     outs = _run_ranks(worker)

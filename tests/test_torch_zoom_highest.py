@@ -255,14 +255,19 @@ def test_plain_k6_highest_matches_pallas_highest_interpret(ndir):
 
 
 def test_contraction_rows_the_kernels_take():
-    """A2 is staged by 16-byte copies: 8 bf16 values a chunk at "high",
-    4 float32 values at "highest"."""
-    tzoom._check_rows("k", 36, "highest")
-    tzoom._check_rows("k", 40, "high")
-    with pytest.raises(ValueError, match="multiple of 8"):
-        tzoom._check_rows("k", 36, "high")
-    with pytest.raises(ValueError, match="multiple of 4"):
-        tzoom._check_rows("k", 34, "highest")
+    """Any number of contraction rows: A2's bf16 parts are padded to a
+    multiple of 8 rows (the 16-byte rows of a TMA box) for K1/K3/K5 and,
+    since its wgmma body, for K6, at both precisions; no wrapper refuses
+    a row count any more (K6's mma.sync body staged A2 by 16-byte copies
+    and needed n % 8 == 0 at "high", n % 4 == 0 at "highest")."""
+    for n in (34, 36, 40, 1280):
+        for precision in ("high", "highest"):
+            pad = -(-n // 8) * 8
+            assert tzoom.tc_launch_plan(1, 1, n, 64, 1, 16, 1,
+                                        precision).n_pad == pad
+            assert tzoom.anchor_launch_plan(1, 1, n, 64, 1, 16, 1,
+                                            precision).n_pad == pad
+    assert not hasattr(tzoom, "_check_rows")
 
 
 def test_every_entry_point_is_built_once_from_the_package_sources():

@@ -260,15 +260,31 @@ def test_the_plan_mirrors_the_cuda_source():
 
 
 def test_the_mma_sync_body_is_a_tool_only():
-    """K1/K3/K5's former mma.sync body lives under tools/mma_sync_bodies/
-    with entry points of its own, which no source of the package defines;
-    the package's body issues no mma.sync."""
+    """K1/K3/K5's and K6's former mma.sync bodies live under
+    tools/mma_sync_bodies/ with entry points of their own, which no source
+    of the package defines, names or launches; the package's bodies issue
+    no mma.sync, and no source of the package uses the mma.sync helpers of
+    mma_common.cuh."""
     text = {p.name: p.read_text() for p in _build.sources()}
-    tool = (_build.CSRC.parents[1] / "tools" / "mma_sync_bodies" /
-            "zoom_dft_tc_mma.cu").read_text()
-    for name in ("muse_fused_exp_zoom_tc_mma", "muse_fused_exp_zoom_mma"):
-        assert f'extern "C" int {name}(' in tool
-        assert not any(name in s for s in text.values())
-        assert name not in _build._SIGNATURES
-    assert "mma.sync.aligned" not in text["zoom_dft_tc.cu"]
-    assert "mma_bf16(" in tool
+    bodies = _build.CSRC.parents[1] / "tools" / "mma_sync_bodies"
+    package = [p.read_text() for p in _build.PACKAGE.rglob("*.py")]
+    for file, names, kernel in (
+            ("zoom_dft_tc_mma.cu", ("muse_fused_exp_zoom_tc_mma",
+                                    "muse_fused_exp_zoom_mma"),
+             "zoom_dft_tc.cu"),
+            ("zoom_anchor_tc_mma.cu", ("muse_fused_exp_zoom_anchor_tc_mma",
+                                       "muse_fused_exp_zoom_anchor_mma"),
+             "zoom_anchor_tc.cu")):
+        tool = (bodies / file).read_text()
+        for name in names:
+            assert f'extern "C" int {name}(' in tool
+            assert not any(name in s for s in text.values())
+            assert not any(name in s for s in package)
+            assert name not in _build._SIGNATURES
+        assert not any(file in s for s in package)
+        assert "mma.sync.aligned" not in text[kernel]
+        assert "mma_bf16(" in tool
+    for helper in ("mma_bf16(", "ldsm_x4", "cp_async16(", "contract6_step(",
+                   "stage_a_f32(", "store_g3(", "split3("):
+        assert not any(helper in s for name, s in text.items()
+                       if name.endswith(".cu")), helper
