@@ -284,7 +284,28 @@ Phases (any failure raises, so the exit code is non-zero):
     ``compute_psf`` (<= 1e-3 relative), its rows replayed bit-equal to
     eager, its first and a warmed wall.  The 2048^2 programs are dropped
     first;
-26. one JSON line of per-kernel results, each with its launches on the
+26. the 1000-row night at 9 directions and chunk 88, item 3a' of
+    ``benchmarks/run_all.py:68-77`` (12 chunks in 4 groups,
+    ``golden_plan_night1000_npsflin3.json``), in pools of its own: (a) K1
+    "high" at its launch shapes that no earlier phase ran, on each
+    chunk's own rows (:func:`plan_chunk`) against its 3-pass plain
+    version (<= 2e-6 of max|U|, over all rows and on the last alone; the
+    plain version 11 rows a call): the full-window chunk of 88 rows whole
+    and as the 21-wavelength red part beside its 14-wavelength view of
+    the S=256 sub-window, where D is (88, 9, 1280, 768), 2.90 GiB, and
+    rows 61-87 start past 2^31 bytes;
+    the S=256 chunk's 28-wavelength view of S=128 and its 7-wavelength
+    red part; the 66-row tail's two segments; each with its launch plan,
+    row splits (1), time, bound and launches a night; K2 at 88 rows x 35
+    planes as in 6; (b) the night at the default config and FFT-free,
+    checked as in 24b: 21 K1 launches, 12 of K2 FFT-free, five warmed
+    nights each, the programs with their capture time and memory, and
+    one night of the default config profiled replayed and eager; (c) the
+    night at chunk 88 and at chunk 44, each in fresh pools: launches as
+    its plan says, fits finite and converged, replayed and eager walls in
+    turns, the peak reserved and allocated memory; chunk 44 against chunk
+    88 within 1e-5 (mean PSF) and 1e-3 (per-row FWHM/beta);
+27. one JSON line of per-kernel results, each with its launches on the
     path that runs it (the FFT-free default nights for the three-pass
     launches and K2, the "highest" nights for the six-pass launches, the
     switch nights for K5 and K6, each at its night's precision, the
@@ -297,7 +318,9 @@ Phases (any failure raises, so the exit code is non-zero):
     ``exact_group_launches`` on K1 at "highest" its launches on the
     exact-row nights of 25a; the 2048^2 records of 24a their launches on
     the default-config night of 24b at their shape, K3's on the call of
-    24d) and its bound (the larger of its bytes
+    24d; the records of 26a theirs on the default-config night of 26b at
+    their rows, shape and wavelengths, K2's at 88 rows on the FFT-free
+    night of 26b) and its bound (the larger of its bytes
     over 3.35 TB/s and its operations, each over its unit's peak: fp32
     FLOPs over 67 TFLOP/s, bf16 tensor-core FLOPs (three or six passes)
     over 989 TFLOP/s, exponentials over the SFU's 16 a clock per SM), from
@@ -339,6 +362,7 @@ GOLDEN = os.path.join(DATA, "golden_psf_35l_s1.0_gl0.7_l025.npy")
 GOLDEN_2048 = os.path.join(DATA,
                            "golden_psf_35l_s1.0_gl0.7_l025_dim2048.npy")
 GOLDEN_EXACT = os.path.join(DATA, "golden_psf_35l_s1.0_gl0.7_l02.0.npy")
+NIGHT1000_9 = "golden_plan_night1000_npsflin3.json"
 CLI_BLOCK = ("FWHM 0.85 0.73 0.62", "BETA 2.73 2.55 2.23")
 CLI_LOG = ["-" * 68, "Sparta Seeing: 1.00 arcsec GL: 0.70 L0:25.00 m",
            "LBDA 5000 7000 9000", *CLI_BLOCK, "-" * 68]
@@ -468,9 +492,11 @@ class GuardLog(logging.Handler):
             self.trips.append(record.getMessage())
 
 
-def zoom_operands(torch, cfg, dev, rows, nrow, lb, npsflin):
+def zoom_operands(torch, cfg, dev, rows, nrow, lb, npsflin, view=None):
     """K1's operands for the first ``nrow`` bench rows at ``cfg``'s
-    window and the wavelengths ``lb``."""
+    window and the wavelengths ``lb``; with ``view`` (a blue sub-window's
+    S) on the centred ``view`` sub-window of that window's structure
+    function, a strided view of it, as ``psf_cube_from_base`` takes it."""
     from muse_psfr_tpu_torch.otf.psf import (_dl_window, _zoom_operands,
                                              dphi_base_split,
                                              lambda_crop_size)
@@ -483,6 +509,10 @@ def zoom_operands(torch, cfg, dev, rows, nrow, lb, npsflin):
                                       effective_wind_speed(h, cfg), npsflin,
                                       cfg)
     base = dphi_base_split(w_fit, delta, cfg)
+    if view:
+        S = cfg.otf_window[1]
+        base = base[..., S - view:S + view, S - view:]
+        cfg = cfg.with_(otf_support=view, otf_blue=None)
     a2, alpha, w, *_ = _zoom_operands(
         base, torch.as_tensor(lb, dtype=torch.float32, device=dev),
         torch.as_tensor(lambda_crop_size(lb, cfg), device=dev), cfg)
@@ -524,25 +554,46 @@ def six_pass_plain_row(zoom_dft, args, exp2, b):
 
 def check_zoom_kernel(torch, cfg, dev, rows, nrow, lb, npsflin=1,
                       row_splits=1, label="K1", old=None, f64=False,
-                      device_times=False):
+                      device_times=False, view=None, plain_rows=None):
     """K1 (``row_splits=1``) or K3 against its plain version, and K3
-    against K1, on the first ``nrow`` bench rows at ``cfg``'s window, at
+    against K1, on the first ``nrow`` bench rows at ``cfg``'s window (or
+    on its centred ``view`` sub-window, :func:`zoom_operands`), at
     ``cfg.zoom_precision``: "highest" (six passes; limit 1e-6 of max|U|)
     or "high" (three; limit 2e-6 against the 3-pass plain version; its
-    error against K1 at "highest" is printed).  With ``old`` (the float32
-    FMA bodies) at "highest": the FMA body's distances and the two bodies'
-    times in turns; with ``f64`` also both against float64 on their worst
+    error against K1 at "highest" is printed); the launch plan printed.
+    With ``old`` (the float32 FMA bodies) at "highest": the FMA body's
+    distances and the two bodies' times in turns; with ``f64`` also both against float64 on their worst
     row (limit: the FMA body's 6.663e-06); with ``device_times`` also the
     two bodies' times by CUDA-graph replay, for a launch so small that
-    the host sets the other times (``tools/ab_zoom_highest.py`` asks)."""
+    the host sets the other times (``tools/ab_zoom_highest.py`` asks).
+    With ``plain_rows`` the plain version (checked and timed) runs
+    ``plain_rows`` rows a call over all rows, to bound its memory."""
     from muse_psfr_tpu_torch.ops import zoom_dft
-    args = zoom_operands(torch, cfg, dev, rows, nrow, lb, npsflin)
+    args = zoom_operands(torch, cfg, dev, rows, nrow, lb, npsflin, view)
     base, a2 = args[0], args[2]
     prec = cfg.zoom_precision
     kw = dict(exp2=cfg.zoom_exp2, row_splits=row_splits, precision=prec)
     limit = 2e-6 if prec == "high" else 1e-6
+    plan = zoom_dft.tc_launch_plan(
+        *base.shape, *a2.shape[:2], row_splits, prec,
+        zoom_dft.tma_aligned(base.data_ptr(), base.shape, base.stride(),
+                             args[1].data_ptr()),
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    print(f"{label} launch plan: {plan.warpgroups} consumer warpgroups, "
+          f"{plan.stages} stages, D and dl by {plan.operands['dphi']}, grid "
+          f"{plan.grid}, {plan.threads} threads, {plan.smem} bytes of "
+          f"shared memory")
+
+    def plain():
+        if not plain_rows:
+            return zoom_dft.fused_exp_zoom_reference(*args, **kw)
+        d, dl, a, al, w = args
+        return torch.cat([zoom_dft.fused_exp_zoom_reference(
+            d[i:i + plain_rows], dl, a, al, w[i:i + plain_rows], **kw)
+            for i in range(0, nrow, plain_rows)])
+
     got = zoom_dft.fused_exp_zoom(*args, **kw)
-    want = zoom_dft.fused_exp_zoom_reference(*args, **kw)
+    want = plain()
     torch.cuda.synchronize()
     abs_err, rel = rel_err(torch, got, want)
     print(f"{label} fused_exp_zoom(row_splits={row_splits}, precision="
@@ -552,6 +603,13 @@ def check_zoom_kernel(torch, cfg, dev, rows, nrow, lb, npsflin=1,
     if not rel <= limit:
         raise RuntimeError(f"{label} disagrees with its plain version: "
                            f"{rel}")
+    if plain_rows:
+        _, rel_last = rel_err(torch, got[-1], want[-1])
+        print(f"{label} row {nrow - 1} alone (D's row at byte "
+              f"{4 * (nrow - 1) * base.stride(0)} past the base): relative "
+              f"to its max|U| {rel_last:.3e} (limit {limit:g})")
+        if not rel_last <= limit:
+            raise RuntimeError(f"{label} row {nrow - 1}: {rel_last}")
     extra = {}
     if prec == "high":
         exact = zoom_dft.fused_exp_zoom(*args, exp2=cfg.zoom_exp2,
@@ -632,8 +690,7 @@ def check_zoom_kernel(torch, cfg, dev, rows, nrow, lb, npsflin=1,
                   f"FMA body {dev_t['old'][1]:.4f}")
     else:
         ms = cuda_ms(torch, new, reps)
-    plain_ms = cuda_ms(torch, lambda: zoom_dft.fused_exp_zoom_reference(
-        *args, **kw), reps)
+    plain_ms = cuda_ms(torch, plain, reps)
     flop = 2.0 * np.prod(a2.shape) * base.shape[-1] * base.shape[0]
     passes = 3 if prec == "high" else 6
     print(f"{label} time {ms:.4f} ms ({flop / ms / 1e9:.2f} TFLOP/s of "
@@ -692,14 +749,14 @@ def conv_chain_bytes(B, nl, n, L):
     return 4.0 * (2 * B * nl * n * n + 2 * (B + nl) * L * L + 2 * L * L)
 
 
-def check_conv_kernel(torch, cfg, dev, rows):
-    """K2 vs its plain version at one production chunk (50 rows x 35
+def check_conv_kernel(torch, cfg, dev, rows, B=50):
+    """K2 vs its plain version at one production chunk (``B`` rows x 35
     planes), with the real tip-tilt and intrinsic Moffat spectra; both
     against the float64 chain; and the time of the cuFFT route that the
     default config (``use_fft=True``) takes instead of K2."""
     from muse_psfr_tpu_torch.ops import conv_dft
     from muse_psfr_tpu_torch.otf.convolve import _fft_convolve_same
-    args, (k_tt, k_i), s64 = conv_inputs(torch, cfg, dev, rows)
+    args, (k_tt, k_i), s64 = conv_inputs(torch, cfg, dev, rows, B)
     planes, nk = args[0], args[-1]
     B, nl, n, _ = planes.shape
     L = args[1].shape[-1]
@@ -736,7 +793,8 @@ def check_conv_kernel(torch, cfg, dev, rows):
     bound = roofline("K2", conv_chain_bytes(B, nl, n, L), fp32=flop)
     print(f"K2 at {bound['bound_ms'] / ms:.1%} of its bound, "
           f"{flop / ms / 1e9:.2f} TFLOP/s")
-    return {"name": "fused_conv_chain", "route": "cuda",
+    return {"name": "fused_conv_chain" + (f"@B{B}" if B != 50 else ""),
+            "route": "cuda",
             "source": "muse_psfr_tpu_torch/csrc/conv_dft.cu",
             "replaces": "muse_psfr_tpu/ops/conv_dft.py:139",
             "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
@@ -3082,6 +3140,156 @@ def exact_phase(torch, rows, card, guard_log):
     return exact_launches
 
 
+def plan_chunk(group, k):
+    """The rows of chunk ``k`` of a golden plan's ``group``, padded to
+    its size with the group's last row as ``process_batch`` pads them."""
+    off, size, nval = group["offs"][k], group["sizes"][k], group["nvals"][k]
+    return np.array(group["rows"][off:off + nval]
+                    + [group["rows"][-1]] * (size - nval))
+
+
+def long_night_kernels(torch, cfg, dev, rows, groups):
+    """Phase 26a: K1 "high" at the launch shapes of the 1000-row
+    9-direction night (``groups``, its golden plan's) that no earlier
+    phase ran: the full-window chunk of 88 rows whole (its D 2.90 GiB,
+    rows 61-87 past 2^31 bytes) and as the 21-wavelength red part beside
+    its 14-wavelength S=256 blue view, the S=256 chunk's 28-wavelength
+    view on S=128 and its 7-wavelength red part, the 66-row tail's two
+    segments; each on the chunk's own rows against its plain version
+    (run 11 rows a call) with the row splits the main path takes.
+    Returns the records keyed by (B, window shape, wavelengths)."""
+    from muse_psfr_tpu_torch.ops.zoom_dft import M_TILE, N_TILE
+    from muse_psfr_tpu_torch.otf.psf import _blue_split_cfgs, _zoom_row_splits
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    s256, tail, blue_full, full = groups
+    cases = [("full window", full, 0, None),
+             ("full window, red", blue_full, 0, "red"),
+             ("full window, blue view", blue_full, 0, "blue"),
+             ("S=256, blue view", s256, 0, "blue"),
+             ("S=256, red", s256, 0, "red"),
+             ("tail, blue view", tail, 2, "blue"),
+             ("tail, red", tail, 2, "red")]
+    recs = {}
+    for what, g, k, seg in cases:
+        c = cfg.with_(**{key: tuple(v) if isinstance(v, list) else v
+                         for key, v in g["cfg_delta"].items()})
+        lb, view = LBDA, None
+        if seg:
+            nb, c_blue, c = _blue_split_cfgs(c, LBDA.size)
+            lb = LBDA[:nb] if seg == "blue" else LBDA[nb:]
+            view = c_blue.otf_window[1] if seg == "blue" else None
+        S = view or c.otf_window[1]
+        n, ncols = 2 * S, S + 128
+        sub = plan_chunk(g, k)
+        B = len(sub)
+        r = _zoom_row_splits(B * lb.size * -(-ncols // N_TILE)
+                             * -(-4 * c.dimpsf // M_TILE), n, sms)
+        P = c.otf_window[1]
+        label = f"K1 high ndir=9 {what} {B} x {lb.size}, {n} x {ncols}"
+        print(f"{label}: R={r} row splits on the main path; D of the "
+              f"parent window ({B}, 9, {2 * P}, {P + 128}) "
+              f"{B * 72 * P * (P + 128) / 2**30:.2f} GiB")
+        if r != 1:
+            raise RuntimeError(f"{label}: R={r}")
+        recs[(B, (n, ncols), lb.size)] = dict(
+            name=f"fused_exp_zoom@high,ndir9,B{B} (K1' _kernel, K4 "
+            f"_kernel_dirblock; 1000-row night, {what}, {lb.size} "
+            f"wavelengths, {n} x {ncols})",
+            replaces=f"{JAX_ZOOM}:44,85,179",
+            **check_zoom_kernel(torch, c, dev, tuple(a[sub] for a in rows),
+                                B, lb, npsflin=3, label=label, view=view,
+                                plain_rows=11))
+    return recs
+
+
+def chunk_night(torch, rows, night, label, card, warm=2):
+    """One configuration of 26c in pools of its own: the plan's launches
+    on its first night, fits finite and converged, a second night (every
+    chunk program captured), ``warm`` nights each way in turns
+    (:func:`walls_in_turns`), the peak memory.  Returns the mean PSF, the
+    fits, the walls and the peaks [GiB]."""
+    from muse_psfr_tpu_torch.parallel.batch import plan_batch, process_batch
+    fresh_pools(torch, label, card)
+    plan = plan_batch(*rows, LBDA, npsflin=night["npsflin"],
+                      cfg=night["cfg"], chunk=night["chunk"])
+    want = plan_kernels(plan.summary()["groups"], not night["cfg"].use_fft)
+    t0 = time.perf_counter()
+    (fit, mean, fit_mean), counts, captured = counted_night(rows, night)
+    ran = {k: v for k, v in counts.items() if v}
+    print(f"{label}: plan {plan_line(plan)}; first night "
+          f"{time.perf_counter() - t0:.3f} s ({captured} programs captured);"
+          f" launches {ran}, the plan's {want}")
+    if ran != want:
+        raise RuntimeError(f"{label}: launches {ran}, the plan says {want}")
+    got = check_fits(fit, len(rows[0]), mean, fit_mean)
+    process_batch(*rows, **night)
+    walls = walls_in_turns(rows, night, warm, card, label)
+    memory_line(torch, f"{label}, after its nights", card)
+    peak = dict(reserved=torch.cuda.max_memory_reserved() / 2**30,
+                allocated=torch.cuda.max_memory_allocated() / 2**30)
+    return mean, got, walls, peak
+
+
+def long_night_phase(torch, dev, card, guard_log):
+    """Phase 26: the 1000-row 9-direction night at chunk 88
+    (``benchmarks/run_all.py:68-77``): the zoom kernel at its new launch
+    shapes (26a), the night at the default config and FFT-free with K2 at
+    88 rows (26b), chunk 88 against chunk 44 (26c).  Returns the kernel
+    records with their launches on the default-config night."""
+    from muse_psfr_tpu_torch.config import GalacsiConfig
+    from muse_psfr_tpu_torch.parallel import programs
+    from muse_psfr_tpu_torch.utils.telemetry import night_rows
+    user = GalacsiConfig()
+    rows = night_rows(1000)
+    with open(os.path.join(DATA, NIGHT1000_9)) as fh:
+        groups = json.load(fh)["groups"]
+    fresh_pools(torch, "phase 26, the 1000-row 9-direction night", card)
+    t_phase = t0 = time.perf_counter()
+    recs = long_night_kernels(torch, user.with_(use_fft=False), dev, rows,
+                              groups)
+    k2 = check_conv_kernel(torch, user.with_(use_fft=False), dev, rows, 88)
+    print(f"  (phase 26a in {time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    night = dict(lbda=LBDA, npsflin=3, cfg=user, chunk=88, device="cuda")
+    label = "1000-row 9-direction night, chunk 88"
+    _, _, calls = planned_night(torch, rows, night, NIGHT1000_9,
+                                f"{label}, default config", card, guard_log)
+    for (B, shape, nl), rec in recs.items():
+        rec["launches"] = sum(sum(c["launched"].values()) for c in calls
+                              if (c["B"], c["shape"], c["nl"])
+                              == (B, shape, nl))
+        print(f"{rec['name']}: {rec['launches']} launches a night")
+    print_programs(torch, programs.programs(), card)
+    for mode in ("graphs", "eager"):
+        profiled_shares(torch, rows, dict(night, _graphs=mode == "graphs"),
+                        f"{label}, default config, {mode}", card, warm=0)
+    free = dict(night, cfg=user.with_(use_fft=False))
+    ran, _, _ = planned_night(torch, rows, free, NIGHT1000_9,
+                              f"{label}, FFT-free", card, guard_log)
+    k2["launches"] = ran["conv_dft"]
+    print(f"  (phase 26b in {time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    mean88, fit88, walls88, peak88 = chunk_night(
+        torch, rows, night, "phase 26c, chunk 88", card)
+    mean44, fit44, walls44, peak44 = chunk_night(
+        torch, rows, dict(night, chunk=44), "phase 26c, chunk 44", card)
+    compare_nights("1000-row 9-direction night, chunk 44 against chunk 88",
+                   mean44, fit44, mean88, fit88)
+    print(f"1000-row 9-direction night, replayed median: chunk 88 "
+          f"{walls88['graphs']['median']:.4f} s, chunk 44 "
+          f"{walls44['graphs']['median']:.4f} s (44 / 88 "
+          f"{walls44['graphs']['median'] / walls88['graphs']['median']:.3f});"
+          f" peak reserved / allocated: chunk 88 {peak88['reserved']:.3f} / "
+          f"{peak88['allocated']:.3f} GiB, chunk 44 {peak44['reserved']:.3f} "
+          f"/ {peak44['allocated']:.3f} GiB ({card})")
+    print(f"  (phase 26c in {time.perf_counter() - t0:.1f} s)")
+    fresh_pools(torch, "phase 26 done", card)
+    print(f"phase 26 took {time.perf_counter() - t_phase:.1f} s")
+    return [*recs.values(), k2]
+
+
 def main(argv):
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3274,6 +3482,8 @@ def main(argv):
     stamp("the 2048^2 grid (phase 24)")
     exact = exact_phase(torch, rows, card, guard_log)
     stamp("the exact structure-function group (phase 25)")
+    long_night = long_night_phase(torch, dev, card, guard_log)
+    stamp("the 1000-row 9-direction night (phase 26)")
     k1["launches"] = counts_top["zoom_dft"]
     k1["exact_group_launches"] = {p: c["zoom_dft"] for p, c in exact.items()}
     k1_9["launches"] = counts9_top["zoom_dft"]
@@ -3299,7 +3509,7 @@ def main(argv):
                 else m["launches"][key])
             for p, m in mesh.items() if p != "walls_s"}
     kernels = [k1, k1_9, k3, k3_cli, k2, k5, k6, t1, t1_9, t3, t3_cli, t5,
-               t6, k2h, *highres]
+               t6, k2h, *highres, *long_night]
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         raise RuntimeError(f"never launched on their paths: {idle}")

@@ -94,6 +94,7 @@ NIGHTS = {
     "night100": ("night100", {}),
     "night100_npsflin3": ("night100_npsflin3", {}),
     "night1000": ("night1000", {}),
+    "night1000_npsflin3": ("night1000_npsflin3", {}),
     "dim2048": ("night100_dim2048", {"dim": 2048}),
     "dim2048_npsflin3": ("night100_dim2048_npsflin3", {"dim": 2048}),
     "exact": ("night100_exact", {}),
