@@ -24,7 +24,7 @@ from .io.sparta import create_sparta_table, read_sparta_values  # noqa: F401
 from .io.table import FitTable
 from .parallel.batch import reconstruct_batch, process_batch
 from .utils.log import get_logger
-from .utils.profiling import maybe_trace, stage_timer
+from .utils.profiling import maybe_trace
 
 logger = get_logger("api")
 
@@ -293,8 +293,7 @@ def condition_sweep(seeing_vals, gl_vals, l0_vals, lbda=None, lmin=490,
                                {**meta, "done": sorted(buf["done"])})
 
     if todo.size:
-        with maybe_trace("condition_sweep", device), \
-                stage_timer("condition_sweep"):
+        with maybe_trace("condition_sweep", device):
             fit_d, _, _ = process_batch(
                 ss.ravel()[todo], gg.ravel()[todo], ll.ravel()[todo],
                 gs_mask[todo], lbda, h=h, npsflin=npsflin, cfg=cfg,

@@ -15,6 +15,8 @@ incremented by its wrapper right after a successful launch;
 :func:`launch_counts` and :func:`reset_launch_counts` read and clear them
 together, and :func:`add_launch_counts` adds the launches of a replayed
 CUDA graph, whose kernels no wrapper sees (``parallel/programs.py``).
+The stage markers of ``csrc/stage_mark.cu`` (:func:`mark_stage`) have no
+counter: they are instrumentation, not work.
 """
 
 import ctypes
@@ -92,6 +94,8 @@ _SIGNATURES = {
     "muse_fused_conv_chain": [_P] * 8 + [_I] * 5 + [_P],
     # the same with the persistent grid's blocks before the stream
     "muse_fused_conv_chain_tc": [_P] * 8 + [_I] * 6 + [_P],
+    # stage id, stream
+    "muse_stage_mark": [_I, _P],
 }
 
 
@@ -192,6 +196,14 @@ def check_operands(name, device, operands, unit_stride_only=False):
                                  "last dimension")
         elif not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
+
+
+def mark_stage(stage_id: int, device):
+    """Launch the empty marker kernel of stage ``stage_id`` on the current
+    stream of ``device``; no launch counter counts it."""
+    lib = library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    check_launch(lib.muse_stage_mark(stage_id, stream), "muse_stage_mark")
 
 
 def launch_counts() -> dict:

@@ -59,6 +59,7 @@ from ..otf.psf import (_centered_idft_np, dphi_base, dphi_base_split,
 from ..core.vonkarman import CST_VK_EXACT, fitting_expansion_spec
 from ..psd.model import (effective_wind_speed, seeing_to_r0, simulate_psd,
                          simulate_psd_split)
+from ..utils import profiling
 from ..utils.device import resolve_device, torch_dtype
 from ..utils.log import get_logger
 from . import programs
@@ -114,18 +115,27 @@ def reconstruct_rows(seeing, GL, L0, gs_mask, lbda, h, wind_speed,
     With ``cfg.use_dphi_split`` the full-grid PSD is never materialised
     (valid for ``L0 >= cfg.dphi_split_l0_min``; the planner routes other
     rows to ``use_dphi_split=False``).
+
+    On a card each stage starts with its marker
+    (``utils/profiling.py:stage``): ``psd``, ``otf`` (the structure
+    function, its window guard and the PSF cube), ``conv``.
     """
+    dev = seeing.device
+    profiling.stage("psd", dev)
     if cfg.use_dphi_split:
         w, delta = simulate_psd_split(seeing, GL, L0, gs_mask, h,
                                       wind_speed, npsflin, cfg)
+        profiling.stage("otf", dev)
         base = dphi_base_split(w, delta, cfg)
     else:
         psd = simulate_psd(seeing, GL, L0, gs_mask, h, wind_speed, npsflin,
                            cfg)
+        profiling.stage("otf", dev)
         base = dphi_base(psd, cfg)
+    guard = _window_guard(base, lbda, cfg)
     psf = psf_cube_from_base(base, lbda, cfg, npixc=npixc)
-    return (convolve_final(psf, lbda, seeing, GL, L0, cfg),
-            _window_guard(base, lbda, cfg))
+    profiling.stage("conv", dev)
+    return convolve_final(psf, lbda, seeing, GL, L0, cfg), guard
 
 
 def _reconstruct_chunk(t, lbda, npixc, h, wind_speed, npsflin, cfg):
@@ -135,7 +145,10 @@ def _reconstruct_chunk(t, lbda, npixc, h, wind_speed, npsflin, cfg):
     psf, guard = reconstruct_rows(t[:, 0], t[:, 1], t[:, 2], t[:, 3:7],
                                   lbda, h, wind_speed, npsflin, cfg,
                                   npixc=npixc)
-    return psf, torch.min(guard)
+    profiling.stage("reduce", t.device)
+    out = psf, torch.min(guard)
+    profiling.stage("end", t.device)
+    return out
 
 
 def _fit_chunk(t, n_valid, lbda, npixc, h, wind_speed, npsflin, cfg,
@@ -145,12 +158,19 @@ def _fit_chunk(t, n_valid, lbda, npixc, h, wind_speed, npsflin, cfg,
     function of the same name.  ``t``: (chunk, 7) telemetry on the
     device; ``n_valid``: 0-d int64 tensor, the number of real rows first
     in ``t``.  The sum is the masked contraction of the JAX package, so
-    that no row count is a Python value of the step."""
-    psf, guard = _reconstruct_chunk(t, lbda, npixc, h, wind_speed, npsflin,
-                                    cfg)
+    that no row count is a Python value of the step.  The stages after
+    :func:`reconstruct_rows`'s start with the markers ``fit`` and
+    ``reduce``; ``end`` closes the step."""
+    psf, guard = reconstruct_rows(t[:, 0], t[:, 1], t[:, 2], t[:, 3:7],
+                                  lbda, h, wind_speed, npsflin, cfg,
+                                  npixc=npixc)
+    profiling.stage("fit", t.device)
     fit = fit_moffat_cube_packed(psf, dtype=fit_dtype)
+    profiling.stage("reduce", t.device)
     w = (torch.arange(t.shape[0], device=t.device) < n_valid).to(psf.dtype)
-    return fit, torch.tensordot(w, psf, dims=1), guard
+    out = fit, torch.tensordot(w, psf, dims=1), torch.min(guard)
+    profiling.stage("end", t.device)
+    return out
 
 
 def _program_key(kind, plan, gcfg, size, fit_dtype=None):
@@ -160,11 +180,16 @@ def _program_key(kind, plan, gcfg, size, fit_dtype=None):
 
 
 def _fit_mean(psf_mean, fit_dtype, graphs):
-    """The packed fit of the mean PSF as the program "mean"."""
+    """The packed fit of the mean PSF as the program "mean" (stage markers
+    ``fit`` and ``end``)."""
+    def step(x):
+        profiling.stage("fit", x.device)
+        fit = fit_moffat_cube_packed(x, dtype=fit_dtype)
+        profiling.stage("end", x.device)
+        return (fit,)
+
     key = ("mean", tuple(psf_mean.shape), str(psf_mean.dtype), fit_dtype)
-    return programs.run(
-        key, lambda x: (fit_moffat_cube_packed(x, dtype=fit_dtype),),
-        (psf_mean,), graphs)[0]
+    return programs.run(key, step, (psf_mean,), graphs)[0]
 
 
 # ---- host planning ------------------------------------------------------
@@ -668,7 +693,9 @@ def plan_batch(seeing, GL, L0, gs_mask, lbda, h=(100, 10000),
                 None if mesh is None else (mesh.size, mesh.axis_names))
     hit = _PLAN_MEMO.get(memo_key)
     if hit is not None:
+        profiling.count("plan_memo_hits")
         return hit
+    profiling.count("plan_memo_misses")
     (cfg_r, groups, chunk_n, table, lb_np, h_t, wind_speed,
      npixc) = _plan_batch(seeing, GL, L0, gs_mask, lbda, h, npsflin, cfg,
                           chunk, force_full, dev_type, mesh)
@@ -753,16 +780,18 @@ def _chunks(plan: BatchPlan, dev, mesh=None):
     nvals = np.array([s[3] for *_, shards in sched for s in shards],
                      np.int64)
     placed = {}
-    for d in ((dev,) if mesh is None else mesh.local):
-        if d not in placed:
-            _check_device_dtype(plan.cfg, d)
-            # (copies: the plan's arrays are read-only)
-            placed[d] = (torch.as_tensor(night_np, dtype=dtype, device=d),
-                         torch.tensor(np.array(plan.lbda), dtype=dtype,
-                                      device=d),
-                         torch.tensor(np.array(plan.npixc),
-                                      dtype=torch.int64, device=d),
-                         torch.as_tensor(nvals, device=d))
+    with profiling.span("push"):
+        for d in ((dev,) if mesh is None else mesh.local):
+            if d not in placed:
+                _check_device_dtype(plan.cfg, d)
+                # (copies: the plan's arrays are read-only)
+                placed[d] = (torch.as_tensor(night_np, dtype=dtype,
+                                             device=d),
+                             torch.tensor(np.array(plan.lbda), dtype=dtype,
+                                          device=d),
+                             torch.tensor(np.array(plan.npixc),
+                                          dtype=torch.int64, device=d),
+                             torch.as_tensor(nvals, device=d))
     j = 0
     for gcfg, rows, split in sched:
         shards = []
@@ -920,88 +949,103 @@ def process_batch(seeing, GL, L0, gs_mask, lbda, h=(100, 10000),
     on; ``_graphs=False`` runs them eagerly on the card too, for
     comparison.
     """
-    dev = _night_device(device, mesh)
-    cfg = cfg or GalacsiConfig()
-    fit_dtype = fit_dtype or cfg.fit_dtype
-    seeing = np.atleast_1d(np.asarray(seeing, np.float64))
-    GL = np.atleast_1d(np.asarray(GL, np.float64))
-    L0 = np.atleast_1d(np.asarray(L0, np.float64))
-    gs_mask = np.atleast_2d(np.asarray(gs_mask, np.float64))
-    plan = plan_batch(seeing, GL, L0, gs_mask, lbda, h, npsflin, cfg, chunk,
-                      force_full=_force_full, device=dev, mesh=mesh)
-    idxs, fits, psums = [], [], []
-    guards, guarded = [], []      # guards of the reduced-window chunks
-    count = 0
-    for gcfg, rows, shards in _chunks(plan, dev, mesh):
-        n = len(rows)
-        step = partial(_fit_chunk, h=plan.h, wind_speed=plan.wind_speed,
-                       npsflin=npsflin, cfg=gcfg, fit_dtype=fit_dtype)
-        parts = _replicate_for_host(mesh, dev, [
-            programs.run(_program_key("fit", plan, gcfg, t.shape[0],
-                                      fit_dtype),
-                         step, (t, n_valid, lbda_d, npixc_d), _graphs)
-            for t, n_valid, lbda_d, npixc_d in shards])
-        fit = _cat([p[0] for p in parts])
-        psum = reduce(torch.add, [p[1] for p in parts])     # shard order
-        guard = reduce(torch.minimum, [p[2] for p in parts])
-        idxs.append(rows)
-        fits.append(fit[:n])
-        psums.append(psum)
-        # no reduced window and no blue sub-window: the guard is +inf by
-        # construction, and the rows are final at delivery
-        free = not gcfg.otf_support and gcfg.otf_blue is None
-        if not free:
-            guards.append(guard)
-            guarded.append(len(idxs) - 1)
-        if on_chunk is not None:
-            on_chunk(rows, fits[-1].cpu().numpy())
-        if on_final is not None and free:
-            on_final(rows)
-        count += n
-    total_psum = torch.sum(torch.stack(psums), dim=0)
-    order = np.concatenate(idxs)
-    inv = np.argsort(order)
-    if _return_parts:
-        return torch.cat(fits)[torch.as_tensor(inv, device=dev)], total_psum
-    psf_mean = total_psum / count
-    fit_mean = _fit_mean(psf_mean, fit_dtype, _graphs)
-    pulled = _pull(torch.cat(fits), psf_mean, fit_mean, *guards)
-    fit_np, psf_mean_np, fit_mean_np = pulled[:3]
-    fit_np = fit_np[inv]
-    guard_np = np.array([float(g) for g in pulled[3:]])
-    tripped = [guarded[i] for i in np.nonzero(guard_np < 0.0)[0]]
-    if on_final is not None:
-        clear = [idxs[i] for i in guarded if i not in tripped]
-        if clear:
-            on_final(np.concatenate(clear))
-    if not tripped:
-        return fit_np, psf_mean_np, fit_mean_np
+    with profiling.span("batch", deltas=True) as attrs:
+        dev = _night_device(device, mesh)
+        cfg = cfg or GalacsiConfig()
+        fit_dtype = fit_dtype or cfg.fit_dtype
+        seeing = np.atleast_1d(np.asarray(seeing, np.float64))
+        GL = np.atleast_1d(np.asarray(GL, np.float64))
+        L0 = np.atleast_1d(np.asarray(L0, np.float64))
+        gs_mask = np.atleast_2d(np.asarray(gs_mask, np.float64))
+        attrs["rows"] = int(seeing.shape[0])
+        with profiling.span("plan"):
+            plan = plan_batch(seeing, GL, L0, gs_mask, lbda, h, npsflin, cfg,
+                              chunk, force_full=_force_full, device=dev,
+                              mesh=mesh)
+        idxs, fits, psums = [], [], []
+        guards, guarded = [], []      # guards of the reduced-window chunks
+        count = 0
+        for gcfg, rows, shards in _chunks(plan, dev, mesh):
+            n = len(rows)
+            step = partial(_fit_chunk, h=plan.h, wind_speed=plan.wind_speed,
+                           npsflin=npsflin, cfg=gcfg, fit_dtype=fit_dtype)
+            parts = _replicate_for_host(mesh, dev, [
+                programs.run(_program_key("fit", plan, gcfg, t.shape[0],
+                                          fit_dtype),
+                             step, (t, n_valid, lbda_d, npixc_d), _graphs)
+                for t, n_valid, lbda_d, npixc_d in shards])
+            profiling.count("rows_computed",
+                            sum(t.shape[0] for t, *_ in shards))
+            fit = _cat([p[0] for p in parts])
+            psum = reduce(torch.add, [p[1] for p in parts])  # shard order
+            guard = reduce(torch.minimum, [p[2] for p in parts])
+            idxs.append(rows)
+            fits.append(fit[:n])
+            psums.append(psum)
+            # no reduced window and no blue sub-window: the guard is +inf by
+            # construction, and the rows are final at delivery
+            free = not gcfg.otf_support and gcfg.otf_blue is None
+            if not free:
+                guards.append(guard)
+                guarded.append(len(idxs) - 1)
+            if on_chunk is not None:
+                on_chunk(rows, fits[-1].cpu().numpy())
+            if on_final is not None and free:
+                on_final(rows)
+            count += n
+        total_psum = torch.sum(torch.stack(psums), dim=0)
+        order = np.concatenate(idxs)
+        inv = np.argsort(order)
+        if _return_parts:
+            return (torch.cat(fits)[torch.as_tensor(inv, device=dev)],
+                    total_psum)
+        psf_mean = total_psum / count
+        fit_mean = _fit_mean(psf_mean, fit_dtype, _graphs)
+        with profiling.span("pull"):
+            pulled = _pull(torch.cat(fits), psf_mean, fit_mean, *guards)
+        fit_np, psf_mean_np, fit_mean_np = pulled[:3]
+        fit_np = fit_np[inv]
+        profiling.count("rows", fit_np.shape[0])
+        guard_np = np.array([float(g) for g in pulled[3:]])
+        tripped = [guarded[i] for i in np.nonzero(guard_np < 0.0)[0]]
+        if on_final is not None:
+            clear = [idxs[i] for i in guarded if i not in tripped]
+            if clear:
+                on_final(np.concatenate(clear))
+        if not tripped:
+            return fit_np, psf_mean_np, fit_mean_np
 
-    # surgical redo: only the tripped chunks' rows, on the full window at
-    # the original chunk; the mean swaps their contribution on the device
-    redo_idx = np.concatenate([idxs[i] for i in tripped])
-    logger.warning(
-        "OTF-support window guard tripped for %d of %d chunks (worst "
-        "margin %.2f); recomputing %d of %d rows with the full window",
-        len(tripped), len(idxs), float(guard_np.min()), redo_idx.size,
-        count)
-    if on_redo_start is not None:
-        on_redo_start(redo_idx)
-    on_chunk_redo = None
-    if on_chunk is not None:
-        def on_chunk_redo(local_idx, packed_np):
-            on_chunk(redo_idx[local_idx], packed_np)
-    fit_redo, psum_redo = process_batch(
-        seeing[redo_idx], GL[redo_idx], L0[redo_idx], gs_mask[redo_idx],
-        lbda, h, npsflin, cfg, plan.chunk, fit_dtype, device,
-        on_chunk=on_chunk_redo, _force_full=True, _return_parts=True,
-        mesh=mesh, _graphs=_graphs)
-    old_sub = torch.sum(torch.stack([psums[i] for i in tripped]), dim=0)
-    psf_mean = (total_psum - old_sub + psum_redo) / count
-    fit_mean = _fit_mean(psf_mean, fit_dtype, _graphs)
-    fit_redo_np, psf_mean_np, fit_mean_np = _pull(fit_redo, psf_mean,
-                                                  fit_mean)
-    fit_np[redo_idx] = fit_redo_np
-    if on_final is not None:
-        on_final(redo_idx)
-    return fit_np, psf_mean_np, fit_mean_np
+        # surgical redo: only the tripped chunks' rows, on the full window
+        # at the original chunk; the mean swaps their contribution on the
+        # device
+        redo_idx = np.concatenate([idxs[i] for i in tripped])
+        profiling.count("guard_trips", len(tripped))
+        profiling.count("redo_rows", redo_idx.size)
+        logger.warning(
+            "OTF-support window guard tripped for %d of %d chunks (worst "
+            "margin %.2f); recomputing %d of %d rows with the full window",
+            len(tripped), len(idxs), float(guard_np.min()), redo_idx.size,
+            count)
+        if on_redo_start is not None:
+            on_redo_start(redo_idx)
+        on_chunk_redo = None
+        if on_chunk is not None:
+            def on_chunk_redo(local_idx, packed_np):
+                on_chunk(redo_idx[local_idx], packed_np)
+        with profiling.span("redo", rows=int(redo_idx.size)):
+            fit_redo, psum_redo = process_batch(
+                seeing[redo_idx], GL[redo_idx], L0[redo_idx],
+                gs_mask[redo_idx], lbda, h, npsflin, cfg, plan.chunk,
+                fit_dtype, device, on_chunk=on_chunk_redo, _force_full=True,
+                _return_parts=True, mesh=mesh, _graphs=_graphs)
+            old_sub = torch.sum(torch.stack([psums[i] for i in tripped]),
+                                dim=0)
+            psf_mean = (total_psum - old_sub + psum_redo) / count
+            fit_mean = _fit_mean(psf_mean, fit_dtype, _graphs)
+        with profiling.span("pull"):
+            fit_redo_np, psf_mean_np, fit_mean_np = _pull(fit_redo, psf_mean,
+                                                          fit_mean)
+        fit_np[redo_idx] = fit_redo_np
+        if on_final is not None:
+            on_final(redo_idx)
+        return fit_np, psf_mean_np, fit_mean_np

@@ -36,6 +36,11 @@ step.  Kernel launch counters (``ops/_build.py``) grow in the Python
 wrappers, which a replay never calls: a program records the counts its
 capture made, takes them back (the capture launched nothing), and adds
 them at each replay.
+
+Each dispatch is a ``replay`` span (``utils/profiling.py``), with the
+program's kind and, for a chunk program, its rows: on the card the copy
+in, the graph launch and the clone out of a replay (or the eager first
+dispatch and the capture); on the CPU the step itself.
 """
 
 import time
@@ -43,6 +48,7 @@ import time
 import torch
 
 from ..ops import _build
+from ..utils import profiling
 
 #: {key: None once dispatched eagerly, then the captured Program}
 _PROGRAMS = {}
@@ -121,17 +127,19 @@ def run(key, fn, args, graphs=True):
     arguments' device: eagerly on the CPU, with ``graphs=False``, or at
     the key's first dispatch; captured at its second and replayed from
     then on.  ``fn`` returns a tuple of tensors."""
-    dev = args[0].device
-    if not graphs or dev.type != "cuda":
-        return fn(*args)
-    key = key + (str(dev),)
-    if key not in _PROGRAMS:
-        _PROGRAMS[key] = None
-        return _eager(dev, fn, args)
-    prog = _PROGRAMS[key]
-    if prog is None:
-        prog = _PROGRAMS[key] = _capture(key, dev, fn, args)
-    return prog(args)
+    rows = {} if key[0] == "mean" else {"rows": int(args[0].shape[0])}
+    with profiling.span("replay", kind=key[0], **rows):
+        dev = args[0].device
+        if not graphs or dev.type != "cuda":
+            return fn(*args)
+        key = key + (str(dev),)
+        if key not in _PROGRAMS:
+            _PROGRAMS[key] = None
+            return _eager(dev, fn, args)
+        prog = _PROGRAMS[key]
+        if prog is None:
+            prog = _PROGRAMS[key] = _capture(key, dev, fn, args)
+        return prog(args)
 
 
 def programs():

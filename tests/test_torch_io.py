@@ -223,15 +223,19 @@ def test_plot_psf_smoke():
     plt.close(fig)
 
 
-def test_stage_timer_logs_at_debug(caplog):
+def test_span_logs_its_wall_at_debug(caplog):
+    """A span logs its wall at DEBUG on ``muse_psfr.profile``; with no
+    profiler active it records nothing."""
+    profiling.reset()
     with caplog.at_level(logging.DEBUG, logger="muse_psfr.profile"):
-        with profiling.stage_timer("a stage"):
+        with profiling.span("a stage"):
             pass
     lines = [r.getMessage() for r in caplog.records
              if r.name == "muse_psfr.profile"]
-    assert len(lines) == 1 and lines[0].startswith("stage a stage")
+    assert len(lines) == 1 and lines[0].startswith("span a stage")
     assert lines[0].endswith(" ms")
     assert caplog.records[0].levelno == logging.DEBUG
+    assert profiling.spans() == []
 
 
 def test_maybe_trace_is_a_no_op_without_the_variable(tmp_path, monkeypatch):
