@@ -43,7 +43,8 @@ sync, so that it can be captured.
 """
 
 import dataclasses
-from functools import partial, reduce
+from contextlib import contextmanager
+from functools import lru_cache, partial, reduce
 from itertools import combinations
 
 import numpy as np
@@ -194,6 +195,50 @@ def _fit_mean(psf_mean, fit_dtype, graphs):
 
 # ---- host planning ------------------------------------------------------
 
+#: the planner's CPU tensor work (the split PSD of its admission model,
+#: broadcasts and two-layer sums over (rows, 2, ndir, dimall, dimall)
+#: blocks) runs on one intra-op thread up to this many elements of
+#: (rows, ndir, dimall, dimall): a pool slows it there.  Above, a pool of
+#: PLAN_THREADS gains (H100 host, 8 cores: ~40% at 1000 rows)
+PLAN_SERIAL_ELEMS = 2 ** 21
+PLAN_THREADS = 4
+#: the admission model evaluates its rows padded to a multiple of this.
+#: Torch's vectorised CPU kernels run the last elements of a loop in a
+#: scalar tail, whose pow/exp round differently from the vector body (32
+#: float32 lanes a step with AVX-512), and a pool of up to PLAN_THREADS
+#: threads splits each (rows, ...) loop into equal parts of whole rows; so
+#: no row lands in a tail, and a row's samples are the same bits whichever
+#: rows and budget it runs with
+ROW_QUANTUM = 32
+
+
+def _plan_threads_for(n_elems):
+    """The planner's intra-op threads for an evaluation of ``n_elems``
+    elements: 1 up to :data:`PLAN_SERIAL_ELEMS`, else
+    :data:`PLAN_THREADS`, never more than the caller's count (rounded down
+    to a power of two, see :data:`ROW_QUANTUM`)."""
+    if n_elems <= PLAN_SERIAL_ELEMS:
+        return 1
+    cap = 1 << (torch.get_num_threads().bit_length() - 1)
+    return min(PLAN_THREADS, cap)
+
+
+@contextmanager
+def _plan_threads(n_elems):
+    """Run the body at :func:`_plan_threads_for` intra-op threads, and give
+    the caller back its own count after, also when the body raises."""
+    threads = torch.get_num_threads()
+    budget = _plan_threads_for(n_elems)
+    if threads == budget:
+        yield
+        return
+    torch.set_num_threads(budget)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 def _split_on_cpu(seeing, GL, L0, gs_mask, h, wind_speed, npsflin, cfg):
     """(w, delta) of the split PSD for every row, computed on CPU tensors
     in ``cfg.dtype`` (as the JAX package computes them on its CPU backend)
@@ -210,6 +255,49 @@ def default_support_bucket(cfg: GalacsiConfig) -> int:
     """The one reduced OTF-support bucket of the batch layer: roughly
     dim/4, 128-aligned (dim=1280 -> 256, dim=2048 -> 512)."""
     return max(128, (cfg.dim // 4) // 128 * 128)
+
+
+class _Admission:
+    """The admission model of one batch's telemetry, each row evaluated
+    once (:func:`_ring_damping`) when a probe first asks for it, and every
+    probe answered from those samples by indexing.  The samples are kept
+    per model: the config without its window fields (``otf_support``,
+    ``otf_blue``), as the planner's probed groups differ from its base
+    config only there."""
+
+    def __init__(self, seeing, GL, L0, gs_mask, h_t, wind_speed, npsflin):
+        self.tel = (seeing, GL, L0, gs_mask)
+        self.model = (h_t, wind_speed, npsflin)
+        self.tables = {}
+
+    def windowable(self, rows, lbda_max_nm, cfg, S, thresh=1e-12):
+        """:func:`rows_windowable` for the batch's rows ``rows``."""
+        out = np.zeros(rows.shape[0], bool)
+        if cfg.otf_window is None or S >= cfg.dim // 2 or S % 128 != 0:
+            return out
+        key = cfg.with_(otf_support=0, otf_blue=None)
+        B = self.tel[0].shape[0]
+        t = self.tables.setdefault(key, {"done": np.zeros(B, bool),
+                                         "ok": np.zeros(B, bool),
+                                         "d_tot": None, "r_of_pt": None})
+        new = np.unique(rows[~t["done"][rows]])
+        if new.size:
+            idx, d_tot, r_of_pt = _ring_damping(
+                *(a[new] for a in self.tel), key, *self.model)
+            if idx.size:
+                if t["d_tot"] is None:
+                    t["d_tot"] = np.empty((B,) + d_tot.shape[1:])
+                    t["r_of_pt"] = r_of_pt
+                t["d_tot"][new[idx]] = d_tot
+            t["ok"][new[idx]] = True
+            t["done"][new] = True
+        ok = t["ok"][rows]
+        if ok.any():
+            convnm2 = (2.0 * np.pi / float(lbda_max_nm)) ** 2
+            sel = t["r_of_pt"] >= S - 1
+            out[ok] = np.all(0.5 * convnm2 * t["d_tot"][rows[ok]][:, :, sel]
+                             >= -np.log(thresh), axis=(1, 2))
+        return out
 
 
 _WINDOWABLE_MEMO = {}
@@ -231,14 +319,13 @@ def rows_windowable(seeing, GL, L0, gs_mask, lbda_max_nm, cfg, S,
 
     Rows outside the certified split range or with non-finite telemetry
     are not windowable.  Results are memoised on the telemetry content.
+    The planner answers its own probes from one evaluation of the night
+    (:class:`_Admission`); a row's answer is the same either way.
     """
     seeing = np.atleast_1d(np.asarray(seeing, np.float64))
     GL = np.atleast_1d(np.asarray(GL, np.float64))
     L0 = np.atleast_1d(np.asarray(L0, np.float64))
     gs_mask = np.atleast_2d(np.asarray(gs_mask, np.float64))
-    out = np.zeros(seeing.shape[0], bool)
-    if cfg.otf_window is None or S >= cfg.dim // 2 or S % 128 != 0:
-        return out
     if wind_speed is None:
         wind_speed = effective_wind_speed(h, cfg)
     h_t = tuple(float(x) for x in np.asarray(h, np.float64).ravel())
@@ -247,72 +334,25 @@ def rows_windowable(seeing, GL, L0, gs_mask, lbda_max_nm, cfg, S,
            thresh)
     if key in _WINDOWABLE_MEMO:
         return _WINDOWABLE_MEMO[key]
-    idx, d_tot, r_of_pt = _ring_damping(seeing, GL, L0, gs_mask, cfg,
-                                        h_t, float(wind_speed), npsflin)
-    if idx.size == 0:
-        return out
-    convnm2 = (2.0 * np.pi / float(lbda_max_nm)) ** 2
-    sel = r_of_pt >= S - 1
-    out[idx] = np.all(0.5 * convnm2 * d_tot[:, :, sel] >= -np.log(thresh),
-                      axis=(1, 2))
+    out = _Admission(seeing, GL, L0, gs_mask, h_t, float(wind_speed),
+                     npsflin).windowable(np.arange(seeing.shape[0]),
+                                         lbda_max_nm, cfg, S, thresh)
     if len(_WINDOWABLE_MEMO) > 64:
         _WINDOWABLE_MEMO.clear()
     _WINDOWABLE_MEMO[key] = out
     return out
 
 
-_RING_DAMPING_MEMO = {}
-
-
-def _ring_damping(seeing, GL, L0, gs_mask, cfg, h_t, wind_speed, npsflin):
-    """Host-side structure-function samples on the admission rays.
-
-    Returns ``(idx, d_tot, r_of_pt)``: the valid-row indices, their
-    (R, ndir, npts) structure-function values on the 8 inf-norm-ring
-    extreme rays at 32-px radius steps from 127 (the smallest window's
-    boundary) to the grid edge, and each point's radius.  Independent of
-    the wavelength and the window, so one evaluation per telemetry serves
-    every (lambda, S) probe of a planning pass (memoised).
-    """
-    key = (seeing.tobytes(), GL.tobytes(), L0.tobytes(), gs_mask.tobytes(),
-           h_t, wind_speed, npsflin, cfg.with_(otf_support=0, otf_blue=None))
-    if key in _RING_DAMPING_MEMO:
-        return _RING_DAMPING_MEMO[key]
-    ok = (np.isfinite(seeing) & (seeing > 0) & np.isfinite(L0)
-          & (L0 >= cfg.dphi_split_l0_min) & np.isfinite(GL)
-          & np.all(np.isfinite(gs_mask), axis=1))
-    idx = np.nonzero(ok)[0]
-    if idx.size == 0:
-        res = (idx, np.zeros((0, 1, 0)), np.zeros(0, int))
-        _RING_DAMPING_MEMO[key] = res
-        return res
-    see_v, gl_v, l0_v, m_v = seeing[idx], GL[idx], L0[idx], gs_mask[idx]
-    dim = cfg.dim
+@lru_cache(maxsize=8)
+def _ray_geometry(dim, lo, s):
+    """The admission rays' constants for a (dim, dim) grid whose split
+    block is columns ``lo:lo+s``: the sampled radii, 32 px apart from 127
+    (the smallest window's boundary) to the grid edge; each sample's index
+    into them; and the centred inverse DFT (``otf/psf.py:
+    _centered_idft_np``) at the samples: ``[C | S]`` over the samples'
+    unique columns (s, 2 nq) with each sample's column among them, and
+    ``C``, ``S`` at the samples' rows (npts, s)."""
     c = dim // 2
-
-    # fit part: per-row ring lower bound of sum_k w_k T_k (exact); r0 in
-    # cfg.dtype, as the split model computes it
-    tmin, tmax = fitting_dphi_ring_envelopes(cfg)        # (K+1, c+1)
-    u0, binoms = fitting_expansion_spec(cfg.dphi_split_l0_min,
-                                        cfg.dphi_split_degree)
-    r0 = seeing_to_r0(torch.as_tensor(see_v, dtype=torch_dtype(cfg.dtype)),
-                      cfg.lambda_ref).double().numpy()
-    nm2 = (cfg.lambda_ref * 1000.0 / (2 * np.pi)) ** 2
-    du = 1.0 / (l0_v * l0_v) - u0
-    w = (nm2 * CST_VK_EXACT * r0[:, None] ** (-5.0 / 3.0) * binoms[None]
-         * du[:, None] ** np.arange(len(binoms))[None])  # (R, K+1)
-    d_fit = (np.where(w[:, :, None] >= 0, w[:, :, None] * tmin[None],
-                      w[:, :, None] * tmax[None])).sum(axis=1)  # (R, c+1)
-
-    # correction part: the zone model, sampled on the 8 ring-extreme rays
-    # at 32-px steps from the smallest window boundary outward
-    _, delta = _split_on_cpu(see_v, gl_v, l0_v, m_v, h_t, wind_speed,
-                             npsflin, cfg)
-    L = cfg.dpup * (dim / cfg.npup)
-    scale = dim * dim / (L * L)
-    bg00 = delta.sum(axis=(-2, -1)) / (L * L)            # (R, ndir)
-    lo = c - cfg.dim_pup
-    s = delta.shape[-1]
     cb, sb = _centered_idft_np(dim, cols=(lo, s))        # (dim, s) f64
     radii = np.arange(127, c, 32)
     if radii[-1] != c - 1:
@@ -325,20 +365,83 @@ def _ring_damping(seeing, GL, L0, gs_mask, cfg, h_t, wind_speed, npsflin):
     rows_p = np.array([c + dy for dy, _ in pts])
     cols_q = np.array([c + dx for _, dx in pts])
     uq, qinv = np.unique(cols_q, return_inverse=True)
-    # contract as GEMMs: (R*ndir*s, s) @ (s, nq)
-    rr, nd = delta.shape[0], delta.shape[1]
-    flat = delta.reshape(-1, s)
-    yc = (flat @ cb[uq].T).reshape(rr, nd, s, -1)        # (R, ndir, s, nq)
-    ys = (flat @ sb[uq].T).reshape(rr, nd, s, -1)
-    re = (np.einsum("ps,rdsp->rdp", cb[rows_p], yc[..., qinv])
-          - np.einsum("ps,rdsp->rdp", sb[rows_p], ys[..., qinv]))
-    d_corr = 2.0 * (bg00[..., None] - re * scale)        # (R, ndir, npts)
-    r_of_pt = np.repeat(radii, 8)
-    d_tot = d_fit[:, r_of_pt][:, None, :] + d_corr       # (R, ndir, npts)
-    if len(_RING_DAMPING_MEMO) > 16:
-        _RING_DAMPING_MEMO.clear()
-    _RING_DAMPING_MEMO[key] = (idx, d_tot, r_of_pt)
-    return idx, d_tot, r_of_pt
+    out = (radii, np.repeat(np.arange(radii.size), 8), qinv,
+           np.concatenate([cb[uq].T, sb[uq].T], axis=1), cb[rows_p],
+           sb[rows_p])
+    for arr in out:
+        arr.setflags(write=False)
+    return out
+
+
+def _ring_damping(seeing, GL, L0, gs_mask, cfg, h_t, wind_speed, npsflin):
+    """Host-side structure-function samples on the admission rays.
+
+    Returns ``(idx, d_tot, r_of_pt)``: the valid-row indices, their
+    (R, ndir, npts) structure-function values on the 8 inf-norm-ring
+    extreme rays at 32-px radius steps from 127 (the smallest window's
+    boundary) to the grid edge, and each point's radius.  Independent of
+    the wavelength and the window, so one evaluation serves every (lambda,
+    S) probe of a planning pass (:class:`_Admission`).
+
+    A row's samples are the same bits whichever rows it comes with: the
+    split PSD runs on the rows padded to a multiple of :data:`ROW_QUANTUM`,
+    on the planner's own threads (:func:`_plan_threads_for`), and each
+    row's contraction is its own GEMM.  Counter ``plan_psd_rows`` counts
+    the rows evaluated.
+    """
+    ok = (np.isfinite(seeing) & (seeing > 0) & np.isfinite(L0)
+          & (L0 >= cfg.dphi_split_l0_min) & np.isfinite(GL)
+          & np.all(np.isfinite(gs_mask), axis=1))
+    idx = np.nonzero(ok)[0]
+    if idx.size == 0:
+        return idx, np.zeros((0, 1, 0)), np.zeros(0, int)
+    n = idx.size
+    profiling.count("plan_psd_rows", n)
+    pad = np.concatenate([idx, np.full(-n % ROW_QUANTUM, idx[-1])])
+    dim, s = cfg.dim, cfg.dimall
+    with _plan_threads(pad.size * npsflin ** 2 * s * s):
+        # r0 in cfg.dtype, as the split model computes it
+        r0 = seeing_to_r0(torch.as_tensor(seeing[pad],
+                                          dtype=torch_dtype(cfg.dtype)),
+                          cfg.lambda_ref).double().numpy()[:n]
+        _, delta = _split_on_cpu(seeing[pad], GL[pad], L0[pad],
+                                 gs_mask[pad], h_t, wind_speed, npsflin, cfg)
+    radii, ring, qinv, csq, cbp, sbp = _ray_geometry(
+        dim, dim // 2 - cfg.dim_pup, s)
+
+    # fit part: per-row ring lower bound of sum_k w_k T_k (exact), at the
+    # sampled radii
+    tmin, tmax = fitting_dphi_ring_envelopes(cfg)        # (K+1, c+1)
+    tmin, tmax = tmin[:, radii], tmax[:, radii]
+    u0, binoms = fitting_expansion_spec(cfg.dphi_split_l0_min,
+                                        cfg.dphi_split_degree)
+    nm2 = (cfg.lambda_ref * 1000.0 / (2 * np.pi)) ** 2
+    l0_v = L0[idx]
+    du = 1.0 / (l0_v * l0_v) - u0
+    w = (nm2 * CST_VK_EXACT * r0[:, None] ** (-5.0 / 3.0) * binoms[None]
+         * du[:, None] ** np.arange(len(binoms))[None])  # (R, K+1)
+    d_fit = (np.where(w[:, :, None] >= 0, w[:, :, None] * tmin[None],
+                      w[:, :, None] * tmax[None])).sum(axis=1)  # (R, nr)
+
+    # correction part: the zone model, sampled on the 8 ring-extreme rays,
+    # ROW_QUANTUM rows at a time.  The GEMM is stacked, one (ndir*s, s) @
+    # (s, 2 nq) a row: BLAS picks its kernels and threads by the shape, so
+    # one GEMM over several rows could round a row with the rows around it
+    L = cfg.dpup * (dim / cfg.npup)
+    scale = dim * dim / (L * L)
+    nd, nq = delta.shape[1], csq.shape[1] // 2
+    d_tot = np.empty((n, nd, ring.size))
+    for lo in range(0, n, ROW_QUANTUM):
+        dl = delta[lo:lo + ROW_QUANTUM]
+        y = (dl.reshape(-1, nd * s, s) @ csq).reshape(-1, nd, s, 2 * nq)
+        re = (np.einsum("ps,rdsp->rdp", cbp, y[..., qinv])
+              - np.einsum("ps,rdsp->rdp", sbp, y[..., nq + qinv]))
+        bg00 = dl.sum(axis=(-2, -1)) / (L * L)           # (r, ndir)
+        d_corr = 2.0 * (bg00[..., None] - re * scale)    # (r, ndir, npts)
+        hi = min(lo + ROW_QUANTUM, n)
+        d_tot[lo:hi] = (d_fit[lo:hi, ring][:, None, :]
+                        + d_corr[:hi - lo])
+    return idx, d_tot, radii[ring]
 
 
 def estimate_otf_support(seeing, GL, L0, gs_mask, lbda_max_nm, cfg,
@@ -346,12 +449,21 @@ def estimate_otf_support(seeing, GL, L0, gs_mask, lbda_max_nm, cfg,
                          thresh: float = 1e-12) -> int:
     """Smallest 128-aligned ``otf_support`` safe for every given row
     (:func:`rows_windowable`), or 0 when only the full window is; for
-    pinning one window explicitly."""
+    pinning one window explicitly.  The rows are evaluated once for every
+    window probed."""
+    seeing = np.atleast_1d(np.asarray(seeing, np.float64))
+    GL = np.atleast_1d(np.asarray(GL, np.float64))
+    L0 = np.atleast_1d(np.asarray(L0, np.float64))
+    gs_mask = np.atleast_2d(np.asarray(gs_mask, np.float64))
     cfg_probe = cfg if cfg.otf_support == 0 else cfg.with_(otf_support=0)
+    if wind_speed is None:
+        wind_speed = effective_wind_speed(h, cfg)
+    h_t = tuple(float(x) for x in np.asarray(h, np.float64).ravel())
+    rows = np.arange(seeing.shape[0])
+    adm = _Admission(seeing, GL, L0, gs_mask, h_t, float(wind_speed),
+                     npsflin)
     for S in range(128, cfg.dim // 2, 128):
-        if rows_windowable(seeing, GL, L0, gs_mask, lbda_max_nm,
-                           cfg_probe, S, h, wind_speed, npsflin,
-                           thresh).all():
+        if adm.windowable(rows, lbda_max_nm, cfg_probe, S, thresh).all():
             return S
     return 0
 
@@ -367,7 +479,7 @@ def _blue_tiers(cfg, ndir: int = 1) -> int:
 
 
 def _blue_split_plan(groups, seeing, GL, L0, gs_mask, lb_np, h_t,
-                     wind_speed, npsflin, chunk_c):
+                     wind_speed, npsflin, chunk_c, adm=None):
     """Per-group blue-segment window planning (``cfg.otf_blue``).
 
     The damping exponent scales as ``(2pi/lambda)^2``, so the bluest
@@ -382,8 +494,11 @@ def _blue_split_plan(groups, seeing, GL, L0, gs_mask, lb_np, h_t,
     factor per extra subgroup and the subgroups cover at least a quarter
     of the group.  Requires an ascending wavelength grid; groups already
     annotated, anchored, or outside the split-certified range are left
-    alone.
+    alone.  The probes read ``adm``, the caller's :class:`_Admission` of
+    the batch (a new one when None), so each row is evaluated once.
     """
+    if adm is None:
+        adm = _Admission(seeing, GL, L0, gs_mask, h_t, wind_speed, npsflin)
     nl = lb_np.size
     if nl < 2 or np.any(np.diff(lb_np) < 0):
         return groups
@@ -406,17 +521,14 @@ def _blue_split_plan(groups, seeing, GL, L0, gs_mask, lb_np, h_t,
         quantum = (chunk_c if gcfg.otf_support == 0
                    else max(1, chunk_c // 4))
         # admission counts over the nb menu (monotone decreasing in nb;
-        # the host model is memoised, one evaluation per row)
+        # every probe reads the night's one evaluation of each row)
         cnts, adms = {}, {}
         for nb in range(kl, nl, kl):
-            adm = rows_windowable(seeing[gidx], GL[gidx], L0[gidx],
-                                  gs_mask[gidx], float(lb_np[nb - 1]),
-                                  probe, Sb, h=h_t, wind_speed=wind_speed,
-                                  npsflin=npsflin)
-            cnt = int(adm.sum())
+            ok = adm.windowable(gidx, float(lb_np[nb - 1]), probe, Sb)
+            cnt = int(ok.sum())
             if cnt == 0:
                 break
-            cnts[nb], adms[nb] = cnt, adm
+            cnts[nb], adms[nb] = cnt, ok
         if not cnts:
             out.append((gcfg, gidx))
             continue
@@ -528,6 +640,8 @@ def _plan_batch(seeing, GL, L0, gs_mask, lbda, h, npsflin, cfg, chunk,
             f"telemetry shapes disagree: seeing {seeing.shape}, GL "
             f"{GL.shape}, L0 {L0.shape}, gs_mask {gs_mask.shape}")
 
+    # the admission model: one evaluation per row, read by every probe
+    adm = _Admission(seeing, GL, L0, gs_mask, h_t, wind_speed, npsflin)
     split_bad = np.zeros(B, bool)
     if cfg.use_dphi_split:
         split_bad = ~(np.isfinite(L0) & (L0 >= cfg.dphi_split_l0_min))
@@ -556,10 +670,7 @@ def _plan_batch(seeing, GL, L0, gs_mask, lbda, h, npsflin, cfg, chunk,
                     and cfg.otf_blue is None):
                 bq = default_support_bucket(cfg)
                 if bq < cfg.dim // 2:
-                    okw = rows_windowable(
-                        seeing[rest], GL[rest], L0[rest], gs_mask[rest],
-                        float(lb_np.max()), cfg, bq, h=h_t,
-                        wind_speed=wind_speed, npsflin=npsflin)
+                    okw = adm.windowable(rest, float(lb_np.max()), cfg, bq)
                     cfg_w = cfg.with_(otf_support=bq)
                     if okw.all():
                         sub = [(cfg_w, rest)]
@@ -573,7 +684,7 @@ def _plan_batch(seeing, GL, L0, gs_mask, lbda, h, npsflin, cfg, chunk,
     if not force_full and cfg.otf_support == 0:
         groups = _blue_split_plan(groups, seeing, GL, L0, gs_mask, lb_np,
                                   h_t, wind_speed, npsflin,
-                                  clamped_chunk(chunk, B, mesh))
+                                  clamped_chunk(chunk, B, mesh), adm)
     # the redo keeps the caller's chunk (the original night's), padding
     # the redone rows up to it
     chunk = clamped_chunk(chunk, chunk if force_full else B, mesh)

@@ -47,9 +47,10 @@ MAX_SPANS = 65536
 #: the counters, in the order :func:`counters` returns them: rows delivered
 #: by ``process_batch``; rows its chunk programs computed (padding and redo
 #: included); chunks whose window guard tripped; rows recomputed by the
-#: surgical redo; ``plan_batch`` calls answered from its memo, and not
+#: surgical redo; ``plan_batch`` calls answered from its memo, and not;
+#: rows whose split PSD the planner's admission model evaluated on the host
 COUNTERS = ("rows", "rows_computed", "guard_trips", "redo_rows",
-            "plan_memo_hits", "plan_memo_misses")
+            "plan_memo_hits", "plan_memo_misses", "plan_psd_rows")
 
 _SPANS = deque(maxlen=MAX_SPANS)
 _COUNTS = dict.fromkeys(COUNTERS, 0)

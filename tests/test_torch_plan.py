@@ -328,3 +328,131 @@ def test_blue_split_leaves_anchored_groups_alone():
     out = tbatch._blue_split_plan(groups, *rows, lb, H, 12.0, 3, 8)
     assert out[0] == groups[0]
     assert any(gc.otf_blue is not None for gc, _ in out[1:])
+
+
+@pytest.fixture
+def threads():
+    """Set torch's intra-op threads for a test; the count before it comes
+    back after."""
+    before = torch.get_num_threads()
+    yield torch.set_num_threads
+    torch.set_num_threads(before)
+
+
+@pytest.mark.parametrize("nthreads", [1, 8])
+@pytest.mark.parametrize("npsflin", [1, 3])
+def test_admission_samples_do_not_depend_on_the_other_rows(npsflin,
+                                                           nthreads,
+                                                           threads):
+    """The planner evaluates each row of the split range once and reads
+    every probe from that table: a row's ring samples are the same bits
+    evaluated with the whole night as with each group of its plan alone,
+    whatever the caller's thread count, and rows_windowable on a group
+    equals the table indexed."""
+    threads(nthreads)
+    s, g, l0, m = build_rows(100)
+    l0[7] = 2.0                         # outside the split range
+    cfg = TConfig()
+    h_t = tuple(float(x) for x in H)
+    ws = tbatch.effective_wind_speed(H, cfg)
+    rest = np.nonzero(l0 >= cfg.dphi_split_l0_min)[0]
+    idx, d_night, r = tbatch._ring_damping(s[rest], g[rest], l0[rest],
+                                           m[rest], cfg, h_t, ws, npsflin)
+    assert np.array_equal(idx, np.arange(99))
+    adm = tbatch._Admission(s, g, l0, m, h_t, ws, npsflin)
+    plan = tbatch.plan_batch(s, g, l0, m, LB35, npsflin=npsflin, cfg=cfg,
+                             chunk=50)
+    groups = [gr.rows for gr in plan.groups if gr.cfg.use_dphi_split]
+    assert len(groups) >= 2 and sum(map(len, groups)) == 99
+    for rows in groups:
+        jdx, d_group, r_group = tbatch._ring_damping(
+            s[rows], g[rows], l0[rows], m[rows], cfg, h_t, ws, npsflin)
+        assert np.array_equal(jdx, np.arange(rows.size))
+        assert np.array_equal(r_group, r)
+        assert np.array_equal(d_group, d_night[np.searchsorted(rest, rows)])
+        for lbda_max, S in [(930.0, 256), (658.2, 128)]:
+            want = tbatch.rows_windowable(s[rows], g[rows], l0[rows],
+                                          m[rows], lbda_max, cfg, S,
+                                          npsflin=npsflin)
+            assert np.array_equal(adm.windowable(rows, lbda_max, cfg, S),
+                                  want)
+    assert torch.get_num_threads() == nthreads
+
+
+@pytest.mark.parametrize("nthreads", [1, 8])
+@pytest.mark.parametrize("name,n,chunk,npsflin", [
+    ("night100", 100, 50, 1),
+    ("night1000", 1000, 100, 1),
+    ("night100_npsflin3", 100, 44, 3),
+])
+def test_golden_plan_at_the_callers_thread_count(name, n, chunk, npsflin,
+                                                 nthreads, threads,
+                                                 monkeypatch):
+    """Planned afresh (no memo) with torch at 1 or 8 threads, each golden
+    plan is the same, and the caller's count is left as it was."""
+    monkeypatch.setattr(tbatch, "_PLAN_MEMO", {})
+    threads(nthreads)
+    plan = tbatch.plan_batch(*build_rows(n), LB35, npsflin=npsflin,
+                             cfg=TConfig(), chunk=chunk)
+    assert torch.get_num_threads() == nthreads
+    with open(os.path.join(ROOT, "tests", "data",
+                           f"golden_plan_{name}.json")) as fh:
+        assert plan.summary() == json.load(fh)
+
+
+def test_plan_batch_gives_the_callers_threads_back_when_it_raises(
+        threads, monkeypatch):
+    threads(3)
+    with pytest.raises(ValueError, match="empty batch"):
+        tbatch.plan_batch([], [], [], np.zeros((0, 4)), LB35)
+    assert torch.get_num_threads() == 3
+
+    def broken(*args, **kw):
+        assert torch.get_num_threads() == 1
+        raise RuntimeError("split PSD failed")
+
+    monkeypatch.setattr(tbatch, "simulate_psd_split", broken)
+    s, g, l0, m = build_rows(5)
+    with pytest.raises(RuntimeError, match="split PSD failed"):
+        tbatch.plan_batch(s, g, l0 * 1.0001, m, LB35)
+    assert torch.get_num_threads() == 3
+
+
+def test_plan_psd_rows_counts_each_row_of_the_split_range_once():
+    """A fresh plan evaluates the admission model once per row of the
+    split range, whatever its probes; a memo hit evaluates nothing."""
+    from muse_psfr_tpu_torch.utils import profiling
+    s, g, l0, m = build_rows(100)
+    l0 = l0 * (1 + 1e-9)                # new telemetry: no memo answers
+    l0[[7, 40]] = 2.0
+    before = profiling.counters()
+    plan = tbatch.plan_batch(s, g, l0, m, LB35, cfg=TConfig(), chunk=50)
+    grew = {k: v - before[k] for k, v in profiling.counters().items()}
+    assert grew["plan_psd_rows"] == 98
+    assert grew["plan_memo_misses"] == 1
+    assert any(gr.cfg.otf_blue for gr in plan.groups)
+    before = profiling.counters()
+    assert tbatch.plan_batch(s, g, l0, m, LB35, cfg=TConfig(),
+                             chunk=50) is plan
+    grew = {k: v - before[k] for k, v in profiling.counters().items()}
+    assert grew["plan_psd_rows"] == 0 and grew["plan_memo_hits"] == 1
+
+
+@pytest.mark.parametrize("budget", [2, 4])
+def test_admission_samples_do_not_depend_on_the_planners_threads(
+        budget, monkeypatch):
+    """The planner's thread budget grows with the evaluation's size; the
+    ring samples are the same bits at one thread and at a pool."""
+    s, g, l0, m = build_rows(100)
+    cfg = TConfig()
+    h_t = tuple(float(x) for x in H)
+    ws = tbatch.effective_wind_speed(H, cfg)
+    got = {}
+    for t in (1, budget):
+        monkeypatch.setattr(tbatch, "_plan_threads_for", lambda n, t=t: t)
+        got[t] = tbatch._ring_damping(s, g, l0, m, cfg, h_t, ws, 3)[1]
+    assert np.array_equal(got[1], got[budget])
+    monkeypatch.undo()
+    assert tbatch._plan_threads_for(128 * 6400) == 1
+    assert tbatch._plan_threads_for(128 * 9 * 6400) == min(
+        tbatch.PLAN_THREADS, 1 << (torch.get_num_threads().bit_length() - 1))

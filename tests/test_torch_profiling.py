@@ -91,7 +91,7 @@ def test_a_traced_night_records_one_batch_and_its_children():
     assert sum(sizes) == 15 and night.attrs["rows"] == 6
     assert night.attrs["counts"] == {
         "rows": 6, "rows_computed": 15, "guard_trips": 0, "redo_rows": 0,
-        "plan_memo_hits": 1, "plan_memo_misses": 0}
+        "plan_memo_hits": 1, "plan_memo_misses": 0, "plan_psd_rows": 0}
 
 
 def test_no_span_is_recorded_without_a_profiler():
